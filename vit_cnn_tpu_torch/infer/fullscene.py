@@ -1,0 +1,133 @@
+"""Full-scene sliding-window inference, stride-1 row-band path.
+
+Port of :mod:`vit_cnn_tpu.infer.fullscene`. The scene stays on the
+device; at stride 1 every (H-P+1) x (W-P+1) window origin is visited
+row-major, a band of ``rows`` origin rows at a time: the band's windows
+are P*P static slices of a (rows+P-1)-row strip (``band_patches``), the
+model runs on the whole band, and each window's logits add into its
+center pixel of an (H, W, K) float32 map with one contiguous slice add.
+Border pixels receive no probability mass (ref: model_utils.py:1127-1131).
+
+Stride > 1 (the generic per-origin path) raises for now.
+"""
+
+from __future__ import annotations
+
+import weakref
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..nn.precision import bf16_apply
+
+
+class SceneCache:
+    """Device-resident scenes, so a repeated request on a scene skips its
+    upload. Keyed by the id() of the host array with a weakref finalizer
+    (the entry goes when the caller drops the array); a host array
+    mutated in place is not re-uploaded. On the CPU the cached tensor
+    aliases the host array and keeps its entry alive for the cache's
+    lifetime."""
+
+    def __init__(self):
+        self._entries: Dict[int, tuple] = {}
+        self.uploads = 0
+
+    def get(self, img, dtype: torch.dtype, device) -> torch.Tensor:
+        base = img if isinstance(img, np.ndarray) else np.asarray(img)
+        entry = self._entries.get(id(base))
+        if entry is None or entry[0]() is not base:
+            ref = weakref.ref(base, lambda r, k=id(base), d=self._entries:
+                              d.pop(k, None))
+            entry = (ref, {})
+            self._entries[id(base)] = entry
+        key = (str(device), dtype)
+        if key not in entry[1]:
+            host = torch.from_numpy(np.ascontiguousarray(base, np.float32))
+            entry[1][key] = host.to(device).to(dtype)
+            self.uploads += 1
+        return entry[1][key]
+
+
+def sliding_window_origins(h: int, w: int, patch_size: int,
+                           step: int = 1) -> np.ndarray:
+    """(N, 2) window origins replicating ref: utils.py:357-401 ordering and
+    the clamp-to-edge duplicates when stride does not divide the span."""
+    p = patch_size
+    offset_h = (h - p) % step
+    offset_w = (w - p) % step
+    xs = np.arange(0, h - p + offset_h + 1, step)
+    xs = np.minimum(xs, h - p)
+    ys = np.arange(0, w - p + offset_w + 1, step)
+    ys = np.minimum(ys, w - p)
+    xx = np.repeat(xs, len(ys))
+    yy = np.tile(ys, len(xs))
+    return np.stack([xx, yy], axis=1).astype(np.int32)
+
+
+def band_patches(band: torch.Tensor, rows: int, patch_size: int):
+    """(rows * Wc, P, P, C) windows of a (rows+P-1, W, C) band via P*P
+    static slices; Wc = W - P + 1."""
+    p = patch_size
+    wc = band.shape[1] - p + 1
+    parts = [band[i:i + rows, j:j + wc] for i in range(p) for j in range(p)]
+    stacked = torch.stack(parts, dim=2)                  # (rows, Wc, P*P, C)
+    return stacked.reshape(rows * wc, p, p, band.shape[-1])
+
+
+@torch.inference_mode()
+def full_scene_probabilities(model: torch.nn.Module, img1: np.ndarray,
+                             img2: np.ndarray, hyperparams: Dict,
+                             chunk: int = 8192,
+                             cache: Optional[SceneCache] = None
+                             ) -> np.ndarray:
+    """Class-score map (H, W, n_classes) of ``model`` (eval mode) over a
+    scene, on the model's device.
+
+    ``hyperparams["bf16"]`` serves under the bf16 policy (the model is
+    cast in place, the scene is held in bf16, the map accumulates in
+    float32). The map comes back to the host as a numpy array."""
+    patch_size = int(hyperparams["patch_size"])
+    n_classes = int(hyperparams["n_classes"])
+    step = int(hyperparams.get("test_stride", 1))
+    if step != 1:
+        raise NotImplementedError(
+            "test_stride {} > 1: the generic per-origin path is ROADMAP "
+            "Queue 1, 'stride > 1'".format(step))
+    if hyperparams.get("applyPCA"):
+        raise NotImplementedError("PCA models are not ported yet")
+
+    device = next(model.parameters()).device
+    bf16 = bool(hyperparams.get("bf16"))
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    apply_fn = bf16_apply(model) if bf16 else model
+    cache = cache if cache is not None else SceneCache()
+    scene1 = cache.get(img1, dtype, device)
+    scene2 = cache.get(img2, dtype, device)
+
+    h, w = scene1.shape[:2]
+    p = patch_size
+    total = h - p + 1                       # origin rows
+    wc = w - p + 1
+    rows = max(1, min(total, chunk // max(wc, 1)))
+    t_pad = -total % rows
+    if t_pad:
+        scene1 = torch.cat([scene1, scene1.new_zeros(
+            (t_pad,) + tuple(scene1.shape[1:]))])
+        scene2 = torch.cat([scene2, scene2.new_zeros(
+            (t_pad,) + tuple(scene2.shape[1:]))])
+    probs = torch.zeros((h + t_pad, w, n_classes), dtype=torch.float32,
+                        device=device)
+    row_ids = torch.arange(rows, device=device)
+    for x0 in range(0, total + t_pad, rows):
+        band1 = scene1[x0:x0 + rows + p - 1]
+        band2 = scene2[x0:x0 + rows + p - 1]
+        logits = apply_fn(band_patches(band1, rows, p),
+                          band_patches(band2, rows, p))
+        block = logits.reshape(rows, wc, -1).float()
+        # padding origin rows land inside the image for P >= 3: mask them
+        valid = (x0 + row_ids < total).float()
+        probs[x0 + p // 2:x0 + p // 2 + rows, p // 2:p // 2 + wc] += \
+            block * valid[:, None, None]
+    return probs[:h].cpu().numpy()

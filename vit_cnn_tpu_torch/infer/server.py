@@ -1,0 +1,126 @@
+"""Persistent full-scene serving process.
+
+Port of :mod:`vit_cnn_tpu.infer.server` with the same JSON-line protocol:
+one JSON object per stdin line, one JSON response per stdout line. The
+model stays on the device and scenes stay resident across requests.
+
+Request fields (all optional):
+  hsi / lidar  paths to scene arrays (.npy, or ``file.mat:key``); when
+               omitted, the CLI's ``--dataset`` scene is served
+  out          path to save the (H, W, n_classes) probability map (.npy)
+  pred         path to save the argmax label map (.npy)
+  gt           path to a ground-truth map; the response then carries
+               OA/AA/Kappa (vit_cnn_tpu.metrics.classification)
+  stride       test stride override (only 1 is ported)
+  cmd          "quit" ends the loop
+
+Response: {"ok": true, "seconds": ..., "shape": [...], ...} or
+{"ok": false, "error": "..."}.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from typing import Dict, Optional, TextIO
+
+import numpy as np
+import torch
+
+from .fullscene import SceneCache, full_scene_probabilities
+
+
+def load_array(spec: str) -> np.ndarray:
+    """Load ``path.npy`` or ``path.mat:key``."""
+    from vit_cnn_tpu.data.io import load_mat_key, open_file
+
+    if ".mat:" in spec:
+        path, key = spec.rsplit(":", 1)
+        return np.asarray(load_mat_key(path, key))
+    if spec.endswith(".mat"):
+        raise ValueError(
+            "'{}': .mat scenes need the variable name — use "
+            "'file.mat:key'".format(spec))
+    return np.asarray(open_file(spec))
+
+
+class SceneServer:
+    """Holds an eval-mode model and its hyperparameters and serves scenes.
+
+    Host scene arrays loaded from paths are kept per path, so the
+    device-resident scene cache hits on a repeated request."""
+
+    def __init__(self, model: torch.nn.Module, hyperparams: Dict,
+                 ignored_labels=(), chunk: int = 8192):
+        self.model = model
+        self.hp = dict(hyperparams)
+        self.ignored_labels = list(ignored_labels)
+        self.chunk = chunk
+        self.cache = SceneCache()
+        self._scenes: Dict[str, np.ndarray] = {}
+
+    def _scene(self, spec: Optional[str], default: np.ndarray):
+        if not spec:
+            return default
+        if spec not in self._scenes:
+            self._scenes[spec] = load_array(spec)
+        return self._scenes[spec]
+
+    def serve(self, img1: np.ndarray, img2: np.ndarray,
+              stride: Optional[int] = None) -> np.ndarray:
+        hp = self.hp
+        if stride is not None:
+            hp = dict(hp, test_stride=int(stride))
+        return full_scene_probabilities(self.model, img1, img2, hp,
+                                        chunk=self.chunk, cache=self.cache)
+
+    def handle(self, req: Dict, default_img1: np.ndarray,
+               default_img2: np.ndarray) -> Dict:
+        t0 = time.time()
+        img1 = self._scene(req.get("hsi"), default_img1)
+        img2 = self._scene(req.get("lidar"), default_img2)
+        probs = self.serve(img1, img2, req.get("stride"))
+        resp: Dict = {"ok": True, "shape": list(probs.shape)}
+        if req.get("out"):
+            np.save(req["out"], probs)
+            resp["out"] = req["out"]
+        if req.get("pred") or req.get("gt"):
+            pred = np.argmax(probs, axis=-1).astype(np.int32)
+            if req.get("pred"):
+                np.save(req["pred"], pred)
+                resp["pred"] = req["pred"]
+            if req.get("gt"):
+                from vit_cnn_tpu.metrics.classification import metrics
+
+                gt = self._scene(req["gt"], None)
+                m = metrics(pred, gt, ignored_labels=self.ignored_labels,
+                            n_classes=int(self.hp["n_classes"]))
+                resp.update(OA=float(m["Accuracy"]), AA=float(m["AA"]),
+                            Kappa=float(m["Kappa"]))
+        resp["seconds"] = round(time.time() - t0, 3)
+        return resp
+
+    def loop(self, in_stream: TextIO, out_stream: TextIO,
+             default_img1: np.ndarray, default_img2: np.ndarray) -> int:
+        """Read JSON-line requests until EOF / cmd=quit; returns count."""
+        served = 0
+        for line in in_stream:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                req = json.loads(line)
+            except json.JSONDecodeError as e:
+                print(json.dumps({"ok": False, "error": "bad json: {}".format(
+                    e)}), file=out_stream, flush=True)
+                continue
+            if req.get("cmd") == "quit":
+                break
+            try:
+                resp = self.handle(req, default_img1, default_img2)
+                served += 1
+            except Exception as e:               # keep the server alive
+                resp = {"ok": False, "error": "{}: {}".format(
+                    type(e).__name__, str(e)[:300])}
+            print(json.dumps(resp), file=out_stream, flush=True)
+        return served

@@ -1,0 +1,1 @@
+"""Layers of the port (PyTorch counterparts of vit_cnn_tpu.nn)."""
