@@ -8,23 +8,39 @@ the result lines:
 
 1. device  — the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the build of the kernels from csrc/.
-2. kernels — each hand-written kernel (K1 selective scan, K2 dir_conv_silu,
-   K3 inv_perm_weighted_sum, K4 attention) against its plain PyTorch
-   version on the card, at the flagship's serving shapes and one ragged
-   batch, in float32 (tight) and bfloat16 (outputs round to bf16), with
-   median times of kernel and plain version (CUDA events).
+2. kernels — each hand-written kernel against its plain PyTorch version
+   on the card, in float32 (tight) and bfloat16 (one bf16 step), with
+   median times of kernel and plain version (CUDA events): the forwards
+   (K1 selective scan, K2 dir_conv_silu, K3 inv_perm_weighted_sum, K4
+   attention) at the flagship's serving shapes and one ragged batch, the
+   adjoints (K5-K7) at its train shapes (batch 1024 and a ragged 1001),
+   and the gradients of the four autograd Functions against autograd
+   through their plain versions.
 3. slice   — the port's ``--serve`` daemon on the Synthetic scene at
    Houston2013 size (349 x 1905, 144 + 1 bands, 15 classes) under the bf16
    policy, with seeded random weights loaded through convert.py: three
    requests, seconds and windows/s each, a finite (349, 1905, 15) map,
-   and every kernel's launch count in that run.
+   and every forward kernel's launch count in that run.
 4. crop    — a 12 x 64 crop of the scene served on the card (kernels,
    float32 and bf16) and on the CPU in float32 (plain versions).
+5. train   — the port's training run (the CLI without ``--serve``) on the
+   same scene from the same seeded weights: bf16 over float32 master
+   weights, batch 1024, flip/rotate on, a few epochs of a few steps, then
+   the full-scene map of the best weights and OA/AA/Kappa. Then steady
+   steps on one fixed batch of 1024 centers (ms/step, patches/s, peak
+   device memory). Every loss finite, the loss falling over the steady
+   steps, all seven kernels launched (K5-K7 once per backward per use
+   site), every parameter still float32.
+6. train-crop — one float32 step on the card and one on the CPU (plain
+   versions) from the same weights and 32 centers, flip off: loss, every
+   gradient and the updated BatchNorm statistics compared; the card's
+   bf16 loss within a bound of the float32 one.
 
 Then one JSON line with the kernel table, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import io
 import json
 import os
@@ -39,8 +55,38 @@ SCENE = {"VCT_SYN_H": "349", "VCT_SYN_W": "1905", "VCT_SYN_BANDS": "144",
 SEED = 0
 BAND_WINDOWS = 4 * 1897       # windows per band at --infer_chunk 8192
 RAGGED = 1001
+TRAIN_BATCH = 1024
 TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 2e-2)}   # (rtol, atol)
 CROP_TOL = 1e-3               # max|diff| of the f32 crop map, relative
+# train-crop, card f32 against CPU f32 (plain versions):
+# - the whole step's gradients, per tensor: ||diff|| <= GRAD_TOL * ||cpu||
+#   + GRAD_ATOL * (the model's largest gradient norm). The flagship's
+#   gradients at batch 32 are ill-conditioned: the CPU against itself with
+#   1 thread instead of 8 (only the summation order changes) moves some
+#   small gradients by 2.6e-2 of their largest entry (measured on the
+#   H100 host's CPU). The floor is for gradients that vanish
+#   mathematically (biases ahead of a train-mode BatchNorm, phi's bias
+#   under the softmax): float32 rounding noise of 1e-9..1e-7 on both sides.
+# - the updated BatchNorm statistics (forward values): max|diff| <=
+#   STAT_TOL * max|cpu|.
+# - each Mamba backbone alone (no BatchNorm, no ReLU: well conditioned),
+#   the kernels' path in place at full width: every gradient max|diff| <=
+#   BACKBONE_TOL * max|cpu|.
+GRAD_TOL, GRAD_ATOL = 5e-2, 1e-5
+STAT_TOL = 1e-3
+BACKBONE_TOL = 1e-3
+BF16_LOSS_TOL = 0.05          # |bf16 loss - f32 loss| / f32 loss on the card
+STEADY_STEPS = 20
+FORWARD = ("selective_scan", "dir_conv_silu", "inv_perm_weighted_sum",
+           "fused_attention")
+ADJOINTS = ("selective_scan_backward", "dir_conv_silu_backward",
+            "inv_perm_weighted_sum_backward")
+# launches per train step: two Mamba layers, each with a forward and a
+# reverse scan, one dir_conv and one inverse sum; two NonLocal blocks
+PER_STEP = {"selective_scan": 4, "dir_conv_silu": 2,
+            "inv_perm_weighted_sum": 2, "fused_attention": 2,
+            "selective_scan_backward": 4, "dir_conv_silu_backward": 2,
+            "inv_perm_weighted_sum_backward": 2}
 
 
 class Failed(Exception):
@@ -64,23 +110,35 @@ def _median_ms(fn, reps=10):
     return statistics.median(times)
 
 
-def _compare(name, got, want, dtype_name):
+def _compare(name, got, want, dtype_name, summed=()):
     """max|diff| of the kernel's output against the plain version's, held
-    to |d| <= atol + rtol * |want| elementwise."""
+    to |d| <= atol + rtol * |want| elementwise; the outputs listed in
+    ``summed`` to |d| <= atol + rtol * max|want|. Those are the adjoints'
+    sums: dA, dD, dcw, dcb and dw add up ~10^5 float32 terms, and every
+    K5 output is a sum over the state or the channels whose terms
+    cancel, so an entry near zero keeps the rounding of its large terms
+    (the two sides' exp and reduction order differ on the card). K6's du
+    (at most 40 terms per entry) and K7's dy are held elementwise. A
+    summed output's line reports max|diff| / max|want|."""
     import torch
 
     rtol, atol = TOL[dtype_name]
-    outs_g = got if isinstance(got, tuple) else (got,)
-    outs_w = want if isinstance(want, tuple) else (want,)
+    outs_g = got if isinstance(got, (tuple, list)) else (got,)
+    outs_w = want if isinstance(want, (tuple, list)) else (want,)
     worst, ok = 0.0, True
-    for g, w in zip(outs_g, outs_w):
+    for i, (g, w) in enumerate(zip(outs_g, outs_w)):
         if g.numel() == 0:
             continue
         g, w = g.float(), w.float()
         d = (g - w).abs()
         worst = max(worst, float(d.max()))
+        ref = w.abs().max() if i in summed else w.abs()
         ok &= bool(torch.isfinite(g).all()) and bool(
-            (d <= atol + rtol * w.abs()).all())
+            (d <= atol + rtol * ref).all())
+        if i in summed:
+            print("    output {}: max|diff| {:.3e} of max|want| {:.3e}"
+                  .format(i, float(d.max()), float(w.abs().max())),
+                  flush=True)
     print("  {:<44s} {:<8s} max|diff| {:.3e}  (rtol {:g}, atol {:g})  {}"
           .format(name, dtype_name, worst, rtol, atol,
                   "ok" if ok else "FAIL"), flush=True)
@@ -88,6 +146,15 @@ def _compare(name, got, want, dtype_name):
         raise Failed("{} {} disagrees with its plain version".format(
             name, dtype_name))
     return worst
+
+
+def _record(rows, key, err, dtype_name, ms=None, plain_ms=None):
+    """Keep a kernel's worst error per dtype and its timed pair."""
+    row = rows.setdefault(key, {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0})
+    field = "max_abs_err" if dtype_name == "float32" else "max_abs_err_bf16"
+    row[field] = max(row[field], err)
+    if ms is not None:
+        row["ms"], row["plain_ms"] = ms, plain_ms
 
 
 def phase_device():
@@ -158,14 +225,7 @@ def phase_kernels():
     stages = [(81, 72), (49, 128)]          # (L, d) of hsi1 and hsi2
     rows = {}
 
-    def record(key, err, dtype_name, ms=None, plain_ms=None):
-        row = rows.setdefault(key, {"max_abs_err": 0.0,
-                                    "max_abs_err_bf16": 0.0})
-        field = "max_abs_err" if dtype_name == "float32" else \
-            "max_abs_err_bf16"
-        row[field] = max(row[field], err)
-        if ms is not None:
-            row["ms"], row["plain_ms"] = ms, plain_ms
+    record = functools.partial(_record, rows)
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
@@ -250,22 +310,132 @@ def phase_kernels():
     return rows
 
 
+def phase_adjoints(rows):
+    """K5-K7 against autograd through the plain forwards at the train
+    shapes, then every autograd Function's gradients against autograd
+    through its plain version; adds to the JSON rows."""
+    import torch
+
+    from vit_cnn_tpu_torch.ops import attention, dirstream, selective_scan
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+
+    record = functools.partial(_record, rows)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for (L, d) in ((81, 72), (49, 128)):
+            for b in (TRAIN_BATCH, RAGGED):
+                main = dtype == torch.bfloat16 and b == TRAIN_BATCH \
+                    and L == 81
+                for ns, rev in ((6, False), (4, True)):
+                    args = _scan_inputs(g, ns, L, d, 16, b, dtype)
+                    cot = randn(ns, L, d, b).to(dtype)
+                    got = selective_scan.selective_scan_backward(
+                        *args, cot, reverse=rev)
+                    want = selective_scan.selective_scan_backward_reference(
+                        *args, cot, rev)
+                    err = _compare("K5 scan bwd ns={} L={} d={} b={}{}".format(
+                        ns, L, d, b, " rev" if rev else ""), got, want, dn,
+                        summed=range(6))
+                    t = p = None
+                    if main and not rev:
+                        t = _median_ms(
+                            lambda: selective_scan.selective_scan_backward(
+                                *args, cot, reverse=rev))
+                        p = _median_ms(lambda: selective_scan.
+                                       selective_scan_backward_reference(
+                                           *args, cot, rev), reps=3)
+                    record("selective_scan_backward", err, dn, t, p)
+                    del args, cot, got, want
+                orders, inv, rev_rows = _tables(L)
+                u = randn(L, d, b).to(dtype)
+                cw, cb = 0.5 * randn(4, d), 0.1 * randn(d)
+                gf, gr = randn(6, L, d, b).to(dtype), randn(4, L, d, b).to(
+                    dtype)
+                bwd = lambda: dirstream.dir_conv_silu_backward(
+                    u, cw, cb, orders, rev_rows, gf, gr)
+                plain = lambda: dirstream.dir_conv_silu_backward_reference(
+                    u, cw, cb, orders, rev_rows, gf, gr)
+                err = _compare("K6 dir_conv_silu bwd L={} d={} b={}".format(
+                    L, d, b), bwd(), plain(), dn, summed=(1, 2))
+                t = p = None
+                if main:
+                    t, p = _median_ms(bwd), _median_ms(plain, reps=3)
+                record("dir_conv_silu_backward", err, dn, t, p)
+                wts = torch.softmax(randn(10), 0)
+                wf, wr = wts[:6], wts[6:]
+                cot = randn(L, d, b).to(dtype)
+                bwd = lambda: dirstream.inv_perm_weighted_sum_backward(
+                    gf, gr, wf, wr, inv, rev_rows, cot)
+                plain = lambda: dirstream.\
+                    inv_perm_weighted_sum_backward_reference(
+                        gf, gr, wf, wr, inv, rev_rows, cot)
+                err = _compare("K7 inv_perm_weighted_sum bwd L={} d={} b={}"
+                               .format(L, d, b), bwd(), plain(), dn,
+                               summed=(2, 3))
+                t = p = None
+                if main:
+                    t, p = _median_ms(bwd), _median_ms(plain, reps=3)
+                record("inv_perm_weighted_sum_backward", err, dn, t, p)
+                del u, gf, gr, cot
+
+    # the autograd Functions (forward kernel, backward kernel or plain
+    # formula) against autograd through the plain versions, float32
+    def grads(fn, inputs, cot):
+        leaves = [x.detach().requires_grad_() for x in inputs]
+        out = fn(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        if any(o.grad_fn is None for o in outs):
+            raise Failed("an autograd Function's output has no grad_fn")
+        torch.autograd.backward(outs, cot)
+        return [x.grad for x in leaves]
+
+    f32 = torch.float32
+    args = _scan_inputs(g, 6, 81, 72, 16, RAGGED, f32)
+    cot = (randn(6, 81, 72, RAGGED),)
+    _compare("K1/K5 Function grads", grads(
+        lambda *a: selective_scan.selective_scan(*a), args, cot), grads(
+        lambda *a: selective_scan.selective_scan_reference(*a), args, cot),
+        "float32", summed=range(6))
+    orders, inv, rev_rows = _tables(81)
+    conv_in = (randn(81, 72, RAGGED), 0.5 * randn(4, 72), 0.1 * randn(72))
+    cot = (randn(6, 81, 72, RAGGED), randn(4, 81, 72, RAGGED))
+    _compare("K2/K6 Function grads", grads(
+        lambda *a: dirstream.dir_conv_silu(*a, orders, rev_rows), conv_in,
+        cot), grads(lambda *a: dirstream.dir_conv_silu_reference(
+            *a, orders, rev_rows), conv_in, cot), "float32", summed=(1, 2))
+    wts = torch.softmax(randn(10), 0)
+    sum_in = cot + (wts[:6], wts[6:])
+    cot = (randn(81, 72, RAGGED),)
+    _compare("K3/K7 Function grads", grads(
+        lambda *a: dirstream.inv_perm_weighted_sum(*a, inv, rev_rows),
+        sum_in, cot), grads(
+        lambda *a: dirstream.inv_perm_weighted_sum_reference(
+            *a, inv, rev_rows), sum_in, cot), "float32", summed=(2, 3))
+    att_in = tuple(0.3 * randn(RAGGED, n, 128) for n in (49, 9, 9))
+    cot = (randn(RAGGED, 49, 128),)
+    _compare("K4 Function grads", grads(
+        lambda *a: attention.fused_attention(*a, 1.0), att_in, cot), grads(
+        lambda *a: attention.attention_reference(*a, 1.0), att_in, cot),
+        "float32")
+    torch.cuda.synchronize()
+
+
 def _flagship_state_dict(n_bands, n_classes):
-    from vit_cnn_tpu_torch.convert import (flax_to_state_dict,
-                                           seeded_variables,
-                                           state_dict_to_flax)
+    from vit_cnn_tpu_torch.convert import seeded_state_dict
     from vit_cnn_tpu_torch.models.registry import get_model
 
     model = get_model("Multimodality_Mamba", n_classes=n_classes,
                       n_bands=n_bands)[0]
-    return flax_to_state_dict(
-        seeded_variables(state_dict_to_flax(model), SEED), model)
+    return seeded_state_dict(model, SEED)
 
 
 def phase_slice(tmp):
     import numpy as np
 
-    from vit_cnn_tpu.data.registry import get_dataset
+    from vit_cnn_tpu_torch.data import get_dataset
     from vit_cnn_tpu_torch.cli import build_parser, run_serve
     from vit_cnn_tpu_torch.ops import _build
 
@@ -318,7 +488,7 @@ def phase_crop(tmp, state):
     import numpy as np
     import torch
 
-    from vit_cnn_tpu.data.registry import get_dataset
+    from vit_cnn_tpu_torch.data import get_dataset
     from vit_cnn_tpu_torch.infer.fullscene import full_scene_probabilities
     from vit_cnn_tpu_torch.models.registry import get_model
 
@@ -353,6 +523,171 @@ def phase_crop(tmp, state):
         raise Failed("crop map disagrees with the CPU plain path")
 
 
+def _check_counts(counts, steps, where):
+    """Every kernel launched; the adjoints exactly once per backward per
+    use site."""
+    print("[{}] launches {}".format(where, json.dumps(counts)), flush=True)
+    missing = [k for k in FORWARD + ADJOINTS if counts.get(k, 0) <= 0]
+    if missing:
+        raise Failed("kernels never launched in {}: {}".format(where,
+                                                              missing))
+    if steps is not None:
+        off = {k: counts.get(k, 0) for k in ADJOINTS
+               if counts.get(k, 0) != PER_STEP[k] * steps}
+        if off:
+            raise Failed("{}: {} steps but adjoint launches {}".format(
+                where, steps, off))
+
+
+def phase_train(tmp, state):
+    """The CLI's training run at full width, then steady steps."""
+    import numpy as np
+    import torch
+
+    from vit_cnn_tpu_torch.cli import build_parser, run_train
+    from vit_cnn_tpu_torch.data import get_dataset
+    from vit_cnn_tpu_torch.ops import _build
+    from vit_cnn_tpu_torch.tools import flagship_step
+
+    args = build_parser().parse_args([
+        "--dataset", "Synthetic", "--folder", tmp, "--model",
+        "Multimodality_Mamba", "--bf16", "--batch_size", str(TRAIN_BATCH),
+        "--flip_augmentation", "--epoch", "3", "--training_sample", "200",
+        "--log_every", "1", "--seed", str(SEED)])
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    result = run_train(args, state_dict=state)
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    print("[train] run_train {:.1f} s: {} centers, epoch losses {}, val {}, "
+          "OA {:.2f} AA {:.4f} Kappa {:.4f}".format(
+              wall, result["train_samples"], result["losses"],
+              result["val_accuracies"], result["OA"], result["AA"],
+              result["Kappa"]), flush=True)
+    if not all(np.isfinite(result["losses"])):
+        raise Failed("non-finite epoch loss")
+    steps_per_epoch = -(-result["train_samples"] // TRAIN_BATCH)
+    _check_counts(counts, steps_per_epoch * result["epochs"], "train")
+
+    # steady steps on one fixed batch (as bench.py's measure_train_ours)
+    trainer, step_args = flagship_step(
+        get_dataset("Synthetic", tmp)[:3], state, "cuda", TRAIN_BATCH,
+        bf16=True, flip=True, seed=SEED)
+    first = trainer._step(*step_args)                      # not timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(STEADY_STEPS):
+        losses.append(trainer._step(*step_args))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts_steady = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(first)] + [float(x) for x in losses]
+    ms = 1e3 * secs / STEADY_STEPS
+    print("[train] steady: {} steps of {} in {:.3f} s: {:.2f} ms/step, "
+          "{:.0f} patches/s, peak device memory {:.2f} GB".format(
+              STEADY_STEPS, TRAIN_BATCH, secs, ms,
+              STEADY_STEPS * TRAIN_BATCH / secs, peak / 1e9), flush=True)
+    print("[train] steady losses {}".format(
+        " ".join("{:.4f}".format(x) for x in losses)), flush=True)
+    if not all(np.isfinite(losses)):
+        raise Failed("non-finite loss in the steady steps")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise Failed("the loss did not fall over the steady steps")
+    _check_counts(counts_steady, STEADY_STEPS, "train steady")
+    off = [k for k, p in trainer.model.named_parameters()
+           if p.dtype != torch.float32]
+    if off:
+        raise Failed("bf16 training changed parameter dtypes: {}".format(off))
+    return counts, {"ms_per_step": ms,
+                    "patches_per_s": STEADY_STEPS * TRAIN_BATCH / secs,
+                    "peak_gb": peak / 1e9}
+
+
+def phase_train_crop(tmp, state):
+    """One float32 step on the card and on the CPU from the same weights
+    and centers; and the card's bf16 loss against its float32 one."""
+    import numpy as np
+    import torch
+
+    from vit_cnn_tpu_torch.data import get_dataset
+    from vit_cnn_tpu_torch.models.registry import get_model
+    from vit_cnn_tpu_torch.tools import flagship_step
+
+    scene = tuple(x[:40, :200] for x in get_dataset("Synthetic", tmp)[:3])
+    img1, img2, _ = scene
+    n_classes = int(SCENE["VCT_SYN_CLASSES"])
+
+    def one_step(device, bf16):
+        trainer, step_args = flagship_step(scene, state, device, 32,
+                                           bf16=bf16, seed=SEED)
+        loss = trainer._step(*step_args)
+        model = trainer.model
+        grads = {k: p.grad.detach().cpu() for k, p in
+                 model.named_parameters()}
+        stats = {k: v.detach().cpu() for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        return float(loss), grads, stats
+
+    loss_cpu, g_cpu, s_cpu = one_step("cpu", False)
+    loss_gpu, g_gpu, s_gpu = one_step("cuda", False)
+    loss_b16 = one_step("cuda", True)[0]
+    floor = GRAD_ATOL * max(float(g.norm()) for g in g_cpu.values())
+    worst_g = max((float((g_gpu[k] - g).norm()) / (GRAD_TOL * float(g.norm())
+                                                  + floor), k)
+                  for k, g in g_cpu.items())
+    worst_s = max((float((s_gpu[k] - v).abs().max())
+                   / (STAT_TOL * float(v.abs().max())), k)
+                  for k, v in s_cpu.items())
+    dl = abs(loss_gpu - loss_cpu)
+    db = abs(loss_b16 - loss_gpu) / abs(loss_gpu)
+    print("[train-crop] loss card f32 {:.6f} cpu f32 {:.6f} |diff| {:.2e}"
+          .format(loss_gpu, loss_cpu, dl), flush=True)
+    print("[train-crop] {} gradients: worst ||diff|| is {:.3f} of its limit "
+          "({}; limit {:g} x ||cpu|| + {:.2e})".format(
+              len(g_cpu), worst_g[0], worst_g[1], GRAD_TOL, floor),
+          flush=True)
+    print("[train-crop] {} BN statistics: worst max|diff| is {:.3f} of its "
+          "limit ({}; limit {:g} x max|cpu|)".format(
+              len(s_cpu), worst_s[0], worst_s[1], STAT_TOL), flush=True)
+    print("[train-crop] card bf16 loss {:.6f}: {:.2%} from f32 (limit "
+          "{:.0%})".format(loss_b16, db, BF16_LOSS_TOL), flush=True)
+
+    # each Mamba backbone alone, card against CPU, a seeded cotangent
+    model = get_model("Multimodality_Mamba", n_classes=n_classes,
+                      n_bands=(img1.shape[2], img2.shape[2]))[0]
+    model.load_state_dict(state)
+    rng = np.random.RandomState(SEED)
+    worst_b = (0.0, "")
+    for blk in ("hsi1", "hsi2"):
+        net = getattr(model, blk).global_view
+        side = int(round(net.pos_embed.shape[1] ** 0.5))
+        x = rng.randn(32, side, side, net.embed_dims).astype(np.float32)
+        cot = rng.randn(32, side, side, net.embed_dims).astype(np.float32)
+        grads = {}
+        for device in ("cpu", "cuda"):
+            net.to(device).zero_grad(set_to_none=True)
+            xt = torch.tensor(x, device=device, requires_grad=True)
+            net(xt).backward(torch.tensor(cot, device=device))
+            # copies: moving the module to the card moves its grads too
+            grads[device] = {"input": xt.grad.to("cpu", copy=True), **{
+                k: p.grad.to("cpu", copy=True)
+                for k, p in net.named_parameters()}}
+        for k, want in grads["cpu"].items():
+            ratio = float((grads["cuda"][k] - want).abs().max()) / (
+                BACKBONE_TOL * float(want.abs().max()))
+            worst_b = max(worst_b, (ratio, "{}.{}".format(blk, k)))
+    print("[train-crop] Mamba backbones alone: worst max|diff| is {:.3f} of "
+          "its limit ({}; limit {:g} x max|cpu|)".format(
+              worst_b[0], worst_b[1], BACKBONE_TOL), flush=True)
+    if dl > 1e-3 * abs(loss_cpu) or worst_g[0] > 1.0 or worst_s[0] > 1.0 \
+            or worst_b[0] > 1.0 or db > BF16_LOSS_TOL:
+        raise Failed("the card's train step disagrees with the CPU's")
+
+
 def main():
     import torch
 
@@ -375,9 +710,12 @@ def main():
         card = phase_device()
         print("[kernels]", flush=True)
         rows = phase_kernels()
+        phase_adjoints(rows)
         with tempfile.TemporaryDirectory() as tmp:
             counts, _, state = phase_slice(tmp)
             phase_crop(tmp, state)
+            train_counts, steady = phase_train(tmp, state)
+            phase_train_crop(tmp, state)
     except Failed as e:
         print("chip_smoke: FAILED: {}".format(e), file=sys.stderr)
         return 1
@@ -391,10 +729,26 @@ def main():
                                   "vit_cnn_tpu/ops/dirstream.py:308"),
         "fused_attention": ("vit_cnn_tpu_torch/csrc/attention.cu",
                             "vit_cnn_tpu/ops/attention.py:34"),
+        "selective_scan_backward": (
+            "vit_cnn_tpu_torch/csrc/selective_scan_bwd.cu",
+            "vit_cnn_tpu/ops/selective_scan.py:215"),
+        "dir_conv_silu_backward": ("vit_cnn_tpu_torch/csrc/dirstream_bwd.cu",
+                                   "vit_cnn_tpu/ops/dirstream.py:224"),
+        "inv_perm_weighted_sum_backward": (
+            "vit_cnn_tpu_torch/csrc/dirstream_bwd.cu",
+            "vit_cnn_tpu/ops/dirstream.py:377"),
     }
+    # launches: the forward kernels' count from the serving run, the
+    # adjoints' from the training run (each path's counts were set to 0
+    # just before it); launches_by_path has both
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
-                  launches=counts.get(name, 0), **rows[name])
+                  launches=(train_counts if name in ADJOINTS else counts)
+                  .get(name, 0),
+                  launches_by_path={"serve": counts.get(name, 0),
+                                    "train": train_counts.get(name, 0)},
+                  **rows[name])
              for name, (src, rep) in sources.items()]
+    print("[train] {}".format(json.dumps(steady)), flush=True)
     print(card, flush=True)                  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

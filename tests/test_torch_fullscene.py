@@ -141,10 +141,17 @@ def test_cli_refuses_a_missing_card(tmp_path):
 
 
 def test_port_imports_no_jax():
+    """Nor scikit-learn, which the GPU host lacks (the training split is
+    the port's own)."""
     code = ("import sys, vit_cnn_tpu_torch, vit_cnn_tpu_torch.cli, "
-            "vit_cnn_tpu_torch.convert, vit_cnn_tpu_torch.__main__; "
+            "vit_cnn_tpu_torch.convert, vit_cnn_tpu_torch.__main__, "
+            "vit_cnn_tpu_torch.train, vit_cnn_tpu_torch.train.loop, "
+            "vit_cnn_tpu_torch.pipeline, vit_cnn_tpu_torch.pipeline.patches, "
+            "vit_cnn_tpu_torch.data.sampling, "
+            "vit_cnn_tpu_torch.tools.profile_train, "
+            "vit_cnn_tpu_torch.tools.train_conditioning; "
             "print(sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax')))")
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sklearn')))")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=ROOT, timeout=120)

@@ -1,4 +1,4 @@
-"""``python -m vit_cnn_tpu_torch ... --serve``"""
+"""``python -m vit_cnn_tpu_torch ...`` (one training run) or ``... --serve``"""
 
 from .cli import main
 

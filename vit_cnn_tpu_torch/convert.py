@@ -16,7 +16,8 @@ Variables are nested dicts of numpy arrays (a flax variable tree after
 does not consume and on any port parameter or statistic left unset.
 :func:`seeded_variables` draws seeded random values for every variable,
 for tests and smoke runs that need all of them non-trivial (NonLocal's
-output BN scale starts at zero, so init weights would hide it).
+output BN scale starts at zero, so init weights would hide it);
+:func:`seeded_state_dict` gives the same values as a port state_dict.
 """
 
 from __future__ import annotations
@@ -160,3 +161,12 @@ def seeded_variables(variables: Dict, seed: int) -> Dict:
                 node = node.setdefault(part, {})
             node[leaf] = v.astype(np.float32)
     return out
+
+
+def seeded_state_dict(model: nn.Module, seed: int
+                      ) -> Dict[str, torch.Tensor]:
+    """``model``'s state_dict with every entry drawn by
+    :func:`seeded_variables`: the same weights as the flax model given
+    ``seeded_variables(..., seed)``."""
+    return flax_to_state_dict(
+        seeded_variables(state_dict_to_flax(model), seed), model)

@@ -56,4 +56,35 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+namespace {
+
+// Second pass of the backward kernels' cross-block reductions:
+//   out[c][j] = sum_{p < parts} part[c][p][j]
+// one thread per (c, j), partials summed in a fixed order, so the result
+// does not depend on the order in which the first pass's blocks ran (no
+// atomics anywhere).
+template <typename Tout>
+__global__ void sum_partials_kernel(const float* __restrict__ part,
+                                    Tout* __restrict__ out, int parts,
+                                    long long m) {
+  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (j >= m) return;
+  const float* src = part + static_cast<size_t>(blockIdx.y) * parts * m + j;
+  float acc = 0.f;
+  for (int p = 0; p < parts; ++p) acc += src[static_cast<size_t>(p) * m];
+  out[static_cast<size_t>(blockIdx.y) * m + j] = from_f32<Tout>(acc);
+}
+
+template <typename Tout>
+void sum_partials(const float* part, Tout* out, int batch, int parts,
+                  long long m, cudaStream_t stream) {
+  if (batch == 0 || m == 0) return;
+  const int threads = 256;
+  dim3 grid(static_cast<unsigned>((m + threads - 1) / threads), batch);
+  sum_partials_kernel<Tout><<<grid, threads, 0, stream>>>(part, out, parts, m);
+}
+
+}  // namespace
+
 }  // namespace vct

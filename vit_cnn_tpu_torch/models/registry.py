@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict
 
+import numpy as np
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
@@ -55,7 +57,7 @@ def get_model(name: str, **kwargs):
     if name not in MODELS:
         raise KeyError(
             "{} is not ported to PyTorch yet (ported: {}); the rest of the "
-            "zoo is ROADMAP Queue 1, items 9-11".format(name, model_names()))
+            "zoo is ROADMAP Queue 1, items 1 and 9".format(name, model_names()))
     spec = MODELS[name]
     kwargs.setdefault("patch_size", spec.patch_size)
     kwargs.setdefault("lr", spec.lr)
@@ -67,5 +69,17 @@ def get_model(name: str, **kwargs):
     kwargs.setdefault("weight_decay", spec.weight_decay)
     kwargs.setdefault("loss", spec.loss)
     kwargs.setdefault("supervision", spec.supervision)
+    kwargs.setdefault("flip_augmentation", False)
+    kwargs.setdefault("radiation_augmentation", False)
+    kwargs.setdefault("mixture_augmentation", False)
     kwargs["center_pixel"] = spec.center_pixel
+
+    # class weights zeroing ignored labels (ref: model_utils.py:60-66)
+    n_classes = kwargs["n_classes"]
+    if "weights" not in kwargs:
+        weights = np.ones(n_classes, dtype=np.float32)
+        for label in kwargs.get("ignored_labels", []):
+            if 0 <= label < n_classes:
+                weights[label] = 0.0
+        kwargs["weights"] = weights
     return spec.build(kwargs), spec, kwargs

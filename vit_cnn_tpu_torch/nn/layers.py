@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops._build import wide
+
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator):
     """flax's lecun_normal: truncated normal (+-2 sd) of variance 1/fan_in."""
@@ -70,9 +72,9 @@ class Conv(nn.Module):
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` with eps 1e-6 (every LN of the flagship):
-    float32 statistics with the fast variance E[x^2] - E[x]^2 (clipped at
-    0), result in x's dtype. torch's own layer_norm takes the two-pass
-    variance and differs in the last bits."""
+    float32 statistics (float64 for float64 x) with the fast variance
+    E[x^2] - E[x]^2 (clipped at 0), result in x's dtype. torch's own
+    layer_norm takes the two-pass variance and differs in the last bits."""
 
     eps = 1e-6
 
@@ -86,23 +88,31 @@ class LayerNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        xf = x.float()
+        f = wide(x)
+        xf = x.to(f)
         mean = xf.mean(dim=-1, keepdim=True)
         var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float())
-        return (y + self.bias.float()).to(x.dtype)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.to(f))
+        return (y + self.bias.to(f)).to(x.dtype)
 
 
 class ChannelLastBatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` in eval mode over the last axis, with torch's
-    momentum 0.1 (flax decay 0.9) and eps 1e-5.
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last axis.
 
-    Serving uses the running statistics only; a training-mode forward
-    arrives with the training port (ROADMAP Queue 1) and raises here.
-    ``zero_scale`` starts the scale at zero (NonLocal's output BN)."""
+    Eval mode normalises with the running statistics. Train mode follows
+    flax 0.12's defaults (``use_fast_variance``,
+    ``force_float32_reductions``), not torch's ``F.batch_norm``: the
+    float32 batch mean and the BIASED fast variance max(E[x^2] - E[x]^2, 0)
+    over every axis but the last normalise the batch, and the running
+    statistics become 0.9 * old + 0.1 * batch value with that same biased
+    variance (torch would take the unbiased one). Statistics are float32
+    (float64 for float64 x); the output is in x's dtype, and the running
+    statistics keep their own dtype (float32 under the bf16 policies).
+    ``zero_scale`` starts the scale at zero (NonLocal's output BN).
+    """
 
     eps = 1e-5
-    momentum = 0.1       # the running-stat update of the training port
+    decay = 0.9          # flax momentum: the share of the old statistic
 
     def __init__(self, features: int, zero_scale: bool = False):
         super().__init__()
@@ -119,13 +129,21 @@ class ChannelLastBatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x):
+        f = wide(x)
+        xf = x.to(f)
         if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm comes with the training port "
-                "(ROADMAP Queue 1, training); call .eval()")
-        mul = torch.rsqrt(self.running_var.float() + self.eps) \
-            * self.weight.float()
-        y = (x.float() - self.running_mean.float()) * mul + self.bias.float()
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=axes)
+            var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0)
+            with torch.no_grad():
+                self.running_mean.copy_(self.decay * self.running_mean.to(f)
+                                        + (1 - self.decay) * mean)
+                self.running_var.copy_(self.decay * self.running_var.to(f)
+                                       + (1 - self.decay) * var)
+        else:
+            mean, var = self.running_mean.to(f), self.running_var.to(f)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(f)
+        y = (xf - mean) * mul + self.bias.to(f)
         return y.to(x.dtype)
 
 

@@ -6,8 +6,11 @@ Port of the forward of :mod:`vit_cnn_tpu.ops.attention`'s
 * :func:`attention_reference` — the plain PyTorch version, float32
   scores, returned in q's dtype.
 * :func:`fused_attention` — (G, Lq, dh) x (G, Lk, dh): the plain version
-  for a CPU tensor, kernel K4 (``csrc/attention.cu``, the counterpart of
-  the Pallas kernel built by ``_make_kernel``) for a CUDA tensor.
+  for a CPU tensor; for a CUDA tensor an autograd Function whose forward
+  is kernel K4 (``csrc/attention.cu``, the counterpart of the Pallas
+  kernel built by ``_make_kernel``) and whose backward differentiates the
+  plain formula, as the JAX package's ``_fa_bwd`` does (that backward is
+  no TPU kernel, so plain PyTorch is its port).
 * :func:`fused_attention_auto` — also takes (B, H, L, dh), folding B and H
   into G, and returns the rank it got.
 """
@@ -23,9 +26,42 @@ MAX_DH = 256     # head width the kernel keeps in registers
 
 
 def attention_reference(q, k, v, scale: float):
-    s = torch.einsum("gid,gjd->gij", q.float(), k.float()) * scale
+    f = _build.wide(q)
+    s = torch.einsum("gid,gjd->gij", q.to(f), k.to(f)) * scale
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("gij,gjd->gid", p, v.float()).to(q.dtype)
+    return torch.einsum("gij,gjd->gid", p, v.to(f)).to(q.dtype)
+
+
+def _attention_kernel(q, k, v, scale):
+    """K4 for CUDA tensors."""
+    G, lq, dh = q.shape
+    lk = k.shape[1]
+    _build.check_inputs(q, k, v)
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        code = _build.lib().vct_attention(
+            _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), G, lq, lk, dh, float(scale), _build.stream_of(q))
+    _build.check("fused_attention", code)
+    _build.launches["fused_attention"] += 1
+    return o
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Forward K4; backward recomputes the plain formula (``_fa_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v)
+        return _attention_kernel(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+            o = attention_reference(*leaves, ctx.scale)
+            return (*torch.autograd.grad(o, leaves, g), None)
 
 
 def fused_attention(q, k, v, scale: float):
@@ -43,15 +79,7 @@ def fused_attention(q, k, v, scale: float):
                          .format(MAX_LK, MAX_DH, lk, dh))
     if not (k.dtype == v.dtype == q.dtype):
         raise TypeError("q, k and v must share one dtype")
-    _build.check_inputs(q, k, v)
-    o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        code = _build.lib().vct_attention(
-            _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), G, lq, lk, dh, float(scale), _build.stream_of(q))
-    _build.check("fused_attention", code)
-    _build.launches["fused_attention"] += 1
-    return o
+    return _FusedAttention.apply(q, k, v, float(scale))
 
 
 def fused_attention_auto(q, k, v, scale: float):
