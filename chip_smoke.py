@@ -35,8 +35,22 @@ the result lines:
    versions) from the same weights and 32 centers, flip off: loss, every
    gradient and the updated BatchNorm statistics compared; the card's
    bf16 loss within a bound of the float32 one.
+7. zoo     — the transformer zoo's ``--serve`` path on the same scene, bf16,
+   seeded weights through convert.py: MHST for three requests, then
+   SpectralFormer, S2EFT and GLT_Net for one each; seconds and windows/s,
+   a finite (349, 1905, 15) map, and the head-last attention kernels (K8,
+   K9) launched exactly as often as the models' layers and bands say.
+8. zoo-crop — each zoo model on a 12 x 64 crop on the card (float32 and
+   bf16) and on the CPU in float32, held to phase 4's limits; for MHST
+   the number of head selections that differ between card and CPU.
 
-Then one JSON line with the kernel table, and as the last line
+Phase 2 also holds K8 and K9 (float32 and bf16, at every zoo band shape,
+a ragged batch and one token) and times them beside their plain versions,
+``scaled_dot_product_attention`` (K8 without the residual; K4 too) and,
+for K9, the composition of the plain group LayerNorm with K8.
+
+Then one JSON line with the kernel table (time, plain time, bound and what
+bounds it, library time, launches per path), and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -87,6 +101,24 @@ PER_STEP = {"selective_scan": 4, "dir_conv_silu": 2,
             "inv_perm_weighted_sum": 2, "fused_attention": 2,
             "selective_scan_backward": 4, "dir_conv_silu_backward": 2,
             "inv_perm_weighted_sum_backward": 2}
+HEADS = ("fused_attention_heads", "pooled_heads_attention")
+ZOO = ("MHST", "SpectralFormer", "S2EFT", "GLT_Net")
+MHST_REQUESTS = 3
+# K8 / K9 launches per full-scene request at --infer_chunk 8192 on the
+# 349 x 1905 scene: bands (4 origin rows each) x launches per band. MHST
+# (patch 8): 86 bands x 5 ViT layers, 86 x 8 pooled blocks; SpectralFormer
+# (patch 1): 88 x 5; S2EFT (patch 7): 86 x 5; GLT_Net (patch 8): 86 x
+# (5 encoder + 5 decoder layers)
+ZOO_LAUNCHES = {"MHST": (430, 688), "SpectralFormer": (440, 0),
+                "S2EFT": (430, 0), "GLT_Net": (860, 0)}
+# windows per band: 4 origin rows x (1905 - patch + 1)
+ZOO_BANDS = {"MHST": 4 * 1898, "SpectralFormer": 4 * 1905,
+             "S2EFT": 4 * 1899}
+# peaks of the H100 SXM data sheet, for the bounds: HBM bytes/s, special-
+# function-unit exps/s (16 / clock / SM x 132 SMs x 1.98 GHz), FLOP/s by
+# input type (bf16 on the tensor cores, float32 on the CUDA cores)
+PEAK_BYTES, PEAK_EXPS = 3.35e12, 4.2e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 class Failed(Exception):
@@ -148,13 +180,31 @@ def _compare(name, got, want, dtype_name, summed=()):
     return worst
 
 
-def _record(rows, key, err, dtype_name, ms=None, plain_ms=None):
-    """Keep a kernel's worst error per dtype and its timed pair."""
-    row = rows.setdefault(key, {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0})
+def _record(rows, key, err, dtype_name, ms=None, plain_ms=None,
+            bound=None, **timed):
+    """Keep a kernel's worst error per dtype, and at its timed shape its
+    time, its plain version's, its bound (``_bound``) and any other timed
+    field (library_ms, ...)."""
+    row = rows.setdefault(key, {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0,
+                                "library_ms": None})
     field = "max_abs_err" if dtype_name == "float32" else "max_abs_err_bf16"
     row[field] = max(row[field], err)
     if ms is not None:
         row["ms"], row["plain_ms"] = ms, plain_ms
+        row["bound_ms"], row["bound_by"] = bound
+        row.update(timed)
+
+
+def _bound(tensors, dtype_name, exps=0, flops=0):
+    """(bound_ms, bound_by) of one call: the larger of the bytes of its
+    inputs and outputs (``tensors``, each read or written once) over the
+    HBM rate and its operations over their peak rate (exps on the
+    special-function units, FLOPs at the rate of the inputs' type)."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(exps / PEAK_EXPS, flops / PEAK_FLOPS[dtype_name])
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
 
 
 def phase_device():
@@ -218,6 +268,7 @@ def _tables(L):
 def phase_kernels():
     """Each kernel against its plain version; returns the JSON rows."""
     import torch
+    import torch.nn.functional as F
 
     from vit_cnn_tpu_torch.ops import attention, dirstream, selective_scan
 
@@ -241,14 +292,17 @@ def phase_kernels():
                         *args, reverse=rev)
                     err = _compare("K1 scan ns={} L={} d={} b={}{}".format(
                         ns, L, d, b, " rev" if rev else ""), got, want, dn)
-                    t = p = None
+                    t = p = bound = None
                     if main and not rev:
                         t = _median_ms(lambda: selective_scan.selective_scan(
                             *args, reverse=rev))
                         p = _median_ms(
                             lambda: selective_scan.selective_scan_reference(
                                 *args, reverse=rev), reps=3)
-                    record("selective_scan", err, dn, t, p)
+                        # one exp(dt A) per state element and step
+                        bound = _bound(list(args) + [got], dn,
+                                       exps=ns * L * d * 16 * b)
+                    record("selective_scan", err, dn, t, p, bound)
                     del args, got, want
                 # K2 / K3 with the real '{L}_2+8' orders
                 orders, inv, rev_rows = _tables(L)
@@ -261,13 +315,16 @@ def phase_kernels():
                                                          rev_rows)
                 err = _compare("K2 dir_conv_silu L={} d={} b={}".format(
                     L, d, b), got, want, dn)
-                t = p = None
+                t = p = bound = None
                 if main:
                     t = _median_ms(lambda: dirstream.dir_conv_silu(
                         u, cw, cb, orders, rev_rows))
                     p = _median_ms(lambda: dirstream.dir_conv_silu_reference(
                         u, cw, cb, orders, rev_rows), reps=3)
-                record("dir_conv_silu", err, dn, t, p)
+                    # one SiLU exp per output
+                    bound = _bound([u, cw, cb, orders, rev_rows, *got], dn,
+                                   exps=10 * L * d * b)
+                record("dir_conv_silu", err, dn, t, p, bound)
                 yf, yr = got
                 wts = torch.softmax(torch.randn((10,), generator=g,
                                                 device="cuda"), 0)
@@ -278,14 +335,16 @@ def phase_kernels():
                     yf, yr, wf, wr, inv, rev_rows)
                 err = _compare("K3 inv_perm_weighted_sum L={} d={} b={}"
                                .format(L, d, b), got, want, dn)
-                t = p = None
+                t = p = bound = None
                 if main:
                     t = _median_ms(lambda: dirstream.inv_perm_weighted_sum(
                         yf, yr, wf, wr, inv, rev_rows))
                     p = _median_ms(
                         lambda: dirstream.inv_perm_weighted_sum_reference(
                             yf, yr, wf, wr, inv, rev_rows), reps=3)
-                record("inv_perm_weighted_sum", err, dn, t, p)
+                    bound = _bound([yf, yr, wf, wr, inv, rev_rows, got], dn,
+                                   flops=2 * 10 * L * d * b)
+                record("inv_perm_weighted_sum", err, dn, t, p, bound)
                 del u, got, want, yf, yr
         # K4 at the NonLocal shapes of hsi1 and hsi2
         for (lq, lk, dh) in ((49, 9, 128), (25, 4, 72)):
@@ -299,15 +358,138 @@ def phase_kernels():
                 want = attention.attention_reference(q, k, v, 1.0)
                 err = _compare("K4 attention G={} {}x{} dh={}".format(
                     G, lq, lk, dh), got, want, dn)
-                t = p = None
+                t = p = bound = None
+                extra = {}
                 if timed and G == BAND_WINDOWS and lq == 49:
                     t = _median_ms(lambda: attention.fused_attention(
                         q, k, v, 1.0))
                     p = _median_ms(lambda: attention.attention_reference(
                         q, k, v, 1.0))
-                record("fused_attention", err, dn, t, p)
+                    bound = _bound([q, k, v, got], dn, exps=G * lq * lk,
+                                   flops=4 * G * lq * lk * dh)
+                    extra["library_ms"] = _median_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, scale=1.0))
+                record("fused_attention", err, dn, t, p, bound, **extra)
     torch.cuda.synchronize()
+    phase_heads_kernels(rows)
     return rows
+
+
+def _heads_qkv(g, B, n, h, hd, dtype):
+    """q, k, v as the ViT hands them to K8: (B, n, h, hd) views of one
+    fused (B, n, 3 h hd) projection."""
+    import torch
+
+    qkv = torch.randn((B, n, 3 * h * hd), generator=g, device="cuda")
+    return tuple(t.view(B, n, h, hd) for t in qkv.to(dtype).chunk(3, -1))
+
+
+def phase_heads_kernels(rows):
+    """K8 and K9 against their plain versions at every zoo band shape, a
+    ragged batch and one token; timed at the MHST band shape (and K8 at
+    SpectralFormer's) beside the plain versions, SDPA and, for K9, the
+    plain group LayerNorm followed by K8."""
+    import torch
+    import torch.nn.functional as F
+
+    from vit_cnn_tpu_torch.ops import attention
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    record = functools.partial(_record, rows)
+    mhst_b, sf_b = ZOO_BANDS["MHST"], ZOO_BANDS["SpectralFormer"]
+    k8_shapes = [(mhst_b, 65), (sf_b, 146),
+                 (ZOO_BANDS["S2EFT"], 145), (RAGGED, 65), (RAGGED, 1)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        timed = dtype == torch.bfloat16
+        for B, n in k8_shapes:
+            for res in ((False, True) if n == 65 else (False,)):
+                q, k, v = _heads_qkv(g, B, n, 4, 16, dtype)
+                got = attention.fused_attention_heads(q, k, v, 0.25, res)
+                want = attention.attention_reference_heads(q, k, v, 0.25,
+                                                           res)
+                err = _compare("K8 heads attention B={} n={} 4x16{}".format(
+                    B, n, " +q" if res else ""), got, want, dn)
+                t = p = bound = None
+                extra = {}
+                if timed and not res and B in (mhst_b, sf_b):
+                    ms = _median_ms(lambda: attention.fused_attention_heads(
+                        q, k, v, 0.25))
+                    plain = _median_ms(
+                        lambda: attention.attention_reference_heads(
+                            q, k, v, 0.25), reps=3)
+                    lib = _median_ms(lambda: F.scaled_dot_product_attention(
+                        q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), scale=0.25))
+                    bnd = _bound([q, k, v, got], dn, exps=B * 4 * n * n,
+                                 flops=4 * B * 4 * n * n * 16)
+                    print("    n={}: kernel {:.3f} ms, plain {:.3f}, sdpa "
+                          "{:.3f}, bound {:.3f} ({})".format(
+                              n, ms, plain, lib, *bnd), flush=True)
+                    if B == mhst_b:
+                        t, p, bound, extra = ms, plain, bnd, {
+                            "library_ms": lib}
+                    else:          # SpectralFormer's band, kept beside
+                        rows["fused_attention_heads"]["spectralformer"] = {
+                            "ms": ms, "plain_ms": plain, "library_ms": lib,
+                            "bound_ms": bnd[0], "bound_by": bnd[1]}
+                record("fused_attention_heads", err, dn, t, p, bound,
+                       **extra)
+                del q, k, v, got, want
+        for B, n in ((mhst_b, 65), (RAGGED, 65), (RAGGED, 1)):
+            q, k, v = (torch.randn((B, n, 64), generator=g, device="cuda")
+                       .to(dtype) for _ in range(3))
+            lns = [((1 + 0.2 * torch.randn(4, generator=g, device="cuda"))
+                    .to(dtype), (0.1 * torch.randn(4, generator=g,
+                                                   device="cuda")).to(dtype))
+                   for _ in range(3)]
+            got = attention.pooled_heads_attention_auto(q, k, v, *lns, 16, 0.5)
+            # float32: against the plain version in float64 (K9 takes its
+            # LN statistics in float64; in float32 the fast variance of a
+            # group with a large mean cancels, the plain version's too)
+            wide = (lambda x: x.double()) if dtype == torch.float32 else (
+                lambda x: x)
+            want = attention.pooled_attention_reference(
+                wide(q), wide(k), wide(v),
+                *[tuple(map(wide, ln)) for ln in lns], 16, 0.5)
+            err = _compare("K9 pooled attention B={} n={} 16x4".format(B, n),
+                           got, want, dn)
+            t = p = bound = None
+            extra = {}
+            if dtype == torch.float32 and B == mhst_b:
+                # the float32 plain version's own distance from float64
+                plain32 = attention.pooled_attention_reference(
+                    q, k, v, *lns, 16, 0.5)
+                spread = float((plain32.double() - want).abs().max())
+                print("    plain float32 vs float64: max|diff| {:.3e}".format(
+                    spread), flush=True)
+                del plain32
+            if timed and B == mhst_b:
+                t = _median_ms(lambda: attention.pooled_heads_attention_auto(
+                    q, k, v, *lns, 16, 0.5))
+                p = _median_ms(lambda: attention.pooled_attention_reference(
+                    q, k, v, *lns, 16, 0.5), reps=3)
+
+                def composition():
+                    heads = lambda x, ln: attention.ln_groups_reference(
+                        x, *ln, 4).view(B, n, 16, 4)
+                    return attention.fused_attention_heads(
+                        heads(q, lns[0]), heads(k, lns[1]), heads(v, lns[2]),
+                        0.5, True)
+
+                extra["composition_ms"] = _median_ms(composition)
+                bound = _bound([q, k, v, *[x for ln in lns for x in ln], got],
+                               dn, exps=B * 16 * n * n,
+                               flops=4 * B * 16 * n * n * 4)
+                print("    kernel {:.3f} ms, plain {:.3f}, group LN + K8 "
+                      "{:.3f}, bound {:.3f} ({})".format(
+                          t, p, extra["composition_ms"], *bound), flush=True)
+            record("pooled_heads_attention", err, dn, t, p, bound, **extra)
+            if dtype == torch.float32 and B == mhst_b:
+                rows["pooled_heads_attention"]["plain_f32_vs_f64"] = spread
+            del q, k, v, got, want
+    torch.cuda.synchronize()
 
 
 def phase_adjoints(rows):
@@ -339,7 +521,7 @@ def phase_adjoints(rows):
                     err = _compare("K5 scan bwd ns={} L={} d={} b={}{}".format(
                         ns, L, d, b, " rev" if rev else ""), got, want, dn,
                         summed=range(6))
-                    t = p = None
+                    t = p = bound = None
                     if main and not rev:
                         t = _median_ms(
                             lambda: selective_scan.selective_scan_backward(
@@ -347,7 +529,9 @@ def phase_adjoints(rows):
                         p = _median_ms(lambda: selective_scan.
                                        selective_scan_backward_reference(
                                            *args, cot, rev), reps=3)
-                    record("selective_scan_backward", err, dn, t, p)
+                        bound = _bound(list(args) + [cot, *got], dn,
+                                       exps=ns * L * d * 16 * b)
+                    record("selective_scan_backward", err, dn, t, p, bound)
                     del args, cot, got, want
                 orders, inv, rev_rows = _tables(L)
                 u = randn(L, d, b).to(dtype)
@@ -358,12 +542,15 @@ def phase_adjoints(rows):
                     u, cw, cb, orders, rev_rows, gf, gr)
                 plain = lambda: dirstream.dir_conv_silu_backward_reference(
                     u, cw, cb, orders, rev_rows, gf, gr)
+                out = bwd()
                 err = _compare("K6 dir_conv_silu bwd L={} d={} b={}".format(
-                    L, d, b), bwd(), plain(), dn, summed=(1, 2))
-                t = p = None
+                    L, d, b), out, plain(), dn, summed=(1, 2))
+                t = p = bound = None
                 if main:
                     t, p = _median_ms(bwd), _median_ms(plain, reps=3)
-                record("dir_conv_silu_backward", err, dn, t, p)
+                    bound = _bound([u, cw, cb, orders, rev_rows, gf, gr,
+                                    *out], dn, exps=10 * L * d * b)
+                record("dir_conv_silu_backward", err, dn, t, p, bound)
                 wts = torch.softmax(randn(10), 0)
                 wf, wr = wts[:6], wts[6:]
                 cot = randn(L, d, b).to(dtype)
@@ -372,14 +559,18 @@ def phase_adjoints(rows):
                 plain = lambda: dirstream.\
                     inv_perm_weighted_sum_backward_reference(
                         gf, gr, wf, wr, inv, rev_rows, cot)
+                out = bwd()
                 err = _compare("K7 inv_perm_weighted_sum bwd L={} d={} b={}"
-                               .format(L, d, b), bwd(), plain(), dn,
+                               .format(L, d, b), out, plain(), dn,
                                summed=(2, 3))
-                t = p = None
+                t = p = bound = None
                 if main:
                     t, p = _median_ms(bwd), _median_ms(plain, reps=3)
-                record("inv_perm_weighted_sum_backward", err, dn, t, p)
-                del u, gf, gr, cot
+                    bound = _bound([gf, gr, wf, wr, inv, rev_rows, cot, *out],
+                                   dn, flops=2 * 10 * L * d * b)
+                record("inv_perm_weighted_sum_backward", err, dn, t, p,
+                       bound)
+                del u, gf, gr, cot, out
 
     # the autograd Functions (forward kernel, backward kernel or plain
     # formula) against autograd through the plain versions, float32
@@ -420,15 +611,31 @@ def phase_adjoints(rows):
         lambda *a: attention.fused_attention(*a, 1.0), att_in, cot), grads(
         lambda *a: attention.attention_reference(*a, 1.0), att_in, cot),
         "float32")
+    heads_in = _heads_qkv(g, RAGGED, 65, 4, 16, f32)
+    cot = (randn(RAGGED, 65, 4, 16),)
+    _compare("K8 Function grads", grads(
+        lambda *a: attention.fused_attention_heads(*a, 0.25), heads_in, cot),
+        grads(lambda *a: attention.attention_reference_heads(*a, 0.25),
+              heads_in, cot), "float32")
+    pooled_in = tuple(randn(RAGGED, 65, 64) for _ in range(3)) + tuple(
+        x for _ in range(3) for x in (1 + 0.2 * randn(4), 0.1 * randn(4)))
+    cot = (randn(RAGGED, 65, 64),)
+    # the LN scales and biases sum over every token and head
+    _compare("K9 Function grads", grads(
+        lambda *a: attention.pooled_heads_attention(*a, 16, 0.5), pooled_in,
+        cot), grads(lambda q, k, v, a, b, c, d, e, f:
+                    attention.pooled_attention_reference(
+                        q, k, v, (a, b), (c, d), (e, f), 16, 0.5), pooled_in,
+                    cot), "float32", summed=range(3, 9))
     torch.cuda.synchronize()
 
 
-def _flagship_state_dict(n_bands, n_classes):
+def _seeded_state(name, n_bands, n_classes):
+    """The seeded state_dict of a registered model (convert.py)."""
     from vit_cnn_tpu_torch.convert import seeded_state_dict
     from vit_cnn_tpu_torch.models.registry import get_model
 
-    model = get_model("Multimodality_Mamba", n_classes=n_classes,
-                      n_bands=n_bands)[0]
+    model = get_model(name, n_classes=n_classes, n_bands=n_bands)[0]
     return seeded_state_dict(model, SEED)
 
 
@@ -445,7 +652,8 @@ def phase_slice(tmp):
     windows = (h - 8) * (w - 8)
     print("[slice] scene {} x {} x {} + {}, {} windows".format(
         h, w, img1.shape[2], img2.shape[2], windows), flush=True)
-    state = _flagship_state_dict((img1.shape[2], img2.shape[2]), n_classes)
+    state = _seeded_state("Multimodality_Mamba",
+                          (img1.shape[2], img2.shape[2]), n_classes)
     gt_path = os.path.join(tmp, "gt.npy")
     np.save(gt_path, gt)
     out, pred = os.path.join(tmp, "probs.npy"), os.path.join(tmp, "pred.npy")
@@ -688,6 +896,127 @@ def phase_train_crop(tmp, state):
         raise Failed("the card's train step disagrees with the CPU's")
 
 
+def phase_zoo(tmp):
+    """The zoo's --serve path at full width; returns each model's kernel
+    launches."""
+    import numpy as np
+
+    from vit_cnn_tpu_torch.cli import build_parser, run_serve
+    from vit_cnn_tpu_torch.data import get_dataset
+    from vit_cnn_tpu_torch.models.registry import MODELS
+    from vit_cnn_tpu_torch.ops import _build
+
+    img1, img2 = get_dataset("Synthetic", tmp)[:2]
+    h, w = img1.shape[:2]
+    n_bands = (img1.shape[2], img2.shape[2])
+    n_classes = int(SCENE["VCT_SYN_CLASSES"])
+    counts = {}
+    for name in ZOO:
+        p = MODELS[name].patch_size
+        windows = (h - p + 1) * (w - p + 1)
+        n_req = MHST_REQUESTS if name == "MHST" else 1
+        out = os.path.join(tmp, "{}.npy".format(name))
+        requests = [{}] * (n_req - 1) + [{"out": out}, {"cmd": "quit"}]
+        args = build_parser().parse_args([
+            "--dataset", "Synthetic", "--folder", tmp, "--model", name,
+            "--bf16", "--serve", "--seed", str(SEED)])
+        state = _seeded_state(name, n_bands, n_classes)
+        in_s = io.StringIO("\n".join(json.dumps(r) for r in requests)
+                           + "\n")
+        out_s = io.StringIO()
+        _build.launches.clear()
+        served = run_serve(args, in_stream=in_s, out_stream=out_s,
+                           state_dict=state)
+        counts[name] = dict(_build.launches)
+        resps = [json.loads(l) for l in out_s.getvalue().splitlines() if l]
+        for r in resps:
+            print("[zoo] {} {:.3f} s/request, {:.0f} windows/s ({} windows)"
+                  .format(name, r["seconds"], windows / r["seconds"], windows)
+                  if r.get("ok") else "[zoo] {} {}".format(name, r),
+                  flush=True)
+        if served != n_req or len(resps) != n_req or not all(
+                r["ok"] for r in resps):
+            raise Failed("{} did not answer {} requests ok".format(name,
+                                                                  n_req))
+        probs = np.load(out)
+        finite = bool(np.isfinite(probs).all())
+        print("[zoo] {} map {} finite={} max|p|={:.4f}".format(
+            name, probs.shape, finite, float(np.abs(probs).max())),
+            flush=True)
+        if probs.shape != (h, w, n_classes) or not finite:
+            raise Failed("bad {} map".format(name))
+        want = {k: n * n_req for k, n in zip(HEADS, ZOO_LAUNCHES[name])}
+        got = {k: counts[name].get(k, 0) for k in HEADS}
+        others = {k: c for k, c in counts[name].items() if k not in HEADS}
+        print("[zoo] {} launches {} (expected {})".format(
+            name, json.dumps(counts[name]), json.dumps(want)), flush=True)
+        if got != want or others:
+            raise Failed("{}: kernel launches {} differ from {}".format(
+                name, counts[name], want))
+    return counts
+
+
+def phase_zoo_crop(tmp):
+    """Each zoo model on a 12 x 64 crop: card float32 and bf16 against the
+    CPU's float32 plain path, the flagship crop's limits."""
+    import numpy as np
+
+    from vit_cnn_tpu_torch.data import get_dataset
+    from vit_cnn_tpu_torch.infer.fullscene import full_scene_probabilities
+    from vit_cnn_tpu_torch.models.registry import get_model
+
+    img1, img2 = (x[:12, :64] for x in get_dataset("Synthetic", tmp)[:2])
+    n_bands = (img1.shape[2], img2.shape[2])
+    n_classes = int(SCENE["VCT_SYN_CLASSES"])
+    failed = []
+    for name in ZOO:
+        state = _seeded_state(name, n_bands, n_classes)
+
+        def serve(device, bf16):
+            model, _, hp = get_model(name, n_classes=n_classes,
+                                     n_bands=n_bands)
+            model.load_state_dict(state)
+            model.to(device).eval()
+            selects = []          # MHST: every head-select decision
+            for m in model.modules():
+                if hasattr(m, "head_select"):
+                    m.head_select.register_forward_hook(
+                        lambda mod, a, out: selects.append(
+                            (out > 0).cpu().flatten()))
+            probs = full_scene_probabilities(model, img1, img2,
+                                             dict(hp, bf16=bf16))
+            sel = (np.concatenate([x.numpy() for x in selects]) if selects
+                   else None)
+            return probs, sel, hp["patch_size"]
+
+        cpu, sel_cpu, p = serve("cpu", False)
+        f32, sel_f32, _ = serve("cuda", False)
+        b16, sel_b16, _ = serve("cuda", True)
+        inner = (slice(p // 2, p // 2 + 12 - p + 1),
+                 slice(p // 2, p // 2 + 64 - p + 1))
+        scale = max(1.0, float(np.abs(cpu).max()))
+        d32 = float(np.abs(f32 - cpu).max())
+        d16 = float(np.abs(b16 - cpu).max())
+        agree16 = float((b16[inner].argmax(-1) == cpu[inner].argmax(-1))
+                        .mean())
+        print("[zoo-crop] {}: card f32 vs cpu f32 max|diff| {:.3e} (limit "
+              "{:.1e}); card bf16 vs cpu f32 max|diff| {:.3e}, argmax "
+              "agreement {:.4f} (limit 0.99) over {} windows".format(
+                  name, d32, CROP_TOL * scale, d16, agree16,
+                  cpu[inner].shape[0] * cpu[inner].shape[1]), flush=True)
+        if sel_cpu is not None:
+            print("[zoo-crop] {}: head selections differing from the CPU's: "
+                  "card f32 {} of {}, card bf16 {} of {}".format(
+                      name, int((sel_f32 != sel_cpu).sum()), sel_cpu.size,
+                      int((sel_b16 != sel_cpu).sum()), sel_cpu.size),
+                  flush=True)
+        if d32 > CROP_TOL * scale or agree16 < 0.99:
+            failed.append(name)
+    if failed:
+        raise Failed("zoo crop maps disagree with the CPU plain path: {}"
+                     .format(failed))
+
+
 def main():
     import torch
 
@@ -716,6 +1045,8 @@ def main():
             phase_crop(tmp, state)
             train_counts, steady = phase_train(tmp, state)
             phase_train_crop(tmp, state)
+            zoo_counts = phase_zoo(tmp)
+            phase_zoo_crop(tmp)
     except Failed as e:
         print("chip_smoke: FAILED: {}".format(e), file=sys.stderr)
         return 1
@@ -737,15 +1068,25 @@ def main():
         "inv_perm_weighted_sum_backward": (
             "vit_cnn_tpu_torch/csrc/dirstream_bwd.cu",
             "vit_cnn_tpu/ops/dirstream.py:377"),
+        "fused_attention_heads": ("vit_cnn_tpu_torch/csrc/heads_attention.cu",
+                                  "vit_cnn_tpu/ops/attention.py:108"),
+        "pooled_heads_attention": (
+            "vit_cnn_tpu_torch/csrc/heads_attention.cu",
+            "vit_cnn_tpu/ops/attention.py:314"),
     }
-    # launches: the forward kernels' count from the serving run, the
-    # adjoints' from the training run (each path's counts were set to 0
-    # just before it); launches_by_path has both
+    # launches: the flagship forward kernels' count from its serving run,
+    # the adjoints' from the training run, K8 and K9 from the zoo's
+    # serving runs (each run's counts were set to 0 just before it);
+    # launches_by_path has all three paths
+    zoo = {k: sum(c.get(k, 0) for c in zoo_counts.values())
+           for k in sources}
+    paths = {"serve": counts, "train": train_counts, "serve_zoo": zoo}
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
-                  launches=(train_counts if name in ADJOINTS else counts)
-                  .get(name, 0),
-                  launches_by_path={"serve": counts.get(name, 0),
-                                    "train": train_counts.get(name, 0)},
+                  launches=paths["train" if name in ADJOINTS else
+                                 "serve_zoo" if name in HEADS else
+                                 "serve"].get(name, 0),
+                  launches_by_path={k: c.get(name, 0)
+                                    for k, c in paths.items()},
                   **rows[name])
              for name, (src, rep) in sources.items()]
     print("[train] {}".format(json.dumps(steady)), flush=True)

@@ -6,7 +6,10 @@ below 16, no reverse streams, a batch of one, orders that need more than
 than one grid holds. The adjoint kernels (K5-K7) are held against
 autograd through the plain forwards, every autograd Function's gradients
 against autograd through its plain version, and the summed gradients
-must be bitwise equal from one launch to the next. chip_smoke.py covers
+must be bitwise equal from one launch to the next. The head-last
+attention kernels (K8, K9) are held at one token, the zoo's token counts,
+the 512-token limit, head widths 4 / 12 / 16 / 32, ragged batches and
+the strided q / k / v views of a fused projection. chip_smoke.py covers
 the serving and training shapes.
 
 These tests need a CUDA card and skip without one. On the GPU host:
@@ -33,8 +36,10 @@ import pytest
 import torch
 
 from vit_cnn_tpu_torch.ops import _build
-from vit_cnn_tpu_torch.ops.attention import (attention_reference,
-                                             fused_attention)
+from vit_cnn_tpu_torch.ops.attention import (
+    attention_reference, attention_reference_heads, fused_attention,
+    fused_attention_heads, pooled_attention_reference,
+    pooled_heads_attention)
 from vit_cnn_tpu_torch.ops.dirstream import (
     dir_conv_silu, dir_conv_silu_backward,
     dir_conv_silu_backward_reference, dir_conv_silu_reference,
@@ -291,3 +296,81 @@ def test_summed_gradients_are_bitwise_repeatable(gen):
     second = inv_perm_weighted_sum_backward(gf, gr, wf, wr, inv, rr, u)
     assert torch.equal(first[2], second[2]) and torch.equal(first[3],
                                                             second[3])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,n,h,hd,residual", [
+    (1001, 65, 4, 16, True), (3, 146, 4, 16, False), (5, 1, 4, 16, True),
+    (2, 512, 2, 32, True), (9, 33, 3, 12, False), (70000, 5, 16, 4, True)])
+def test_heads_attention(gen, dtype, B, n, h, hd, residual):
+    qkv = _randn(gen, B, n, 3 * h * hd).to(dtype)
+    q, k, v = (t.view(B, n, h, hd) for t in qkv.chunk(3, dim=-1))
+    before = _build.launches["fused_attention_heads"]
+    got = fused_attention_heads(q, k, v, hd ** -0.5, residual)
+    assert _build.launches["fused_attention_heads"] == before + 1
+    _close(got, attention_reference_heads(q, k, v, hd ** -0.5, residual),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,n,h,hd,residual", [
+    (1001, 65, 16, 4, True), (3, 1, 16, 4, True), (4, 65, 5, 8, False),
+    (2, 160, 4, 16, True)])
+def test_pooled_heads_attention(gen, dtype, B, n, h, hd, residual):
+    q, k, v = (_randn(gen, B, n, h * hd).to(dtype) for _ in range(3))
+    lns = [((1 + 0.2 * _randn(gen, hd)).to(dtype),
+            (0.1 * _randn(gen, hd)).to(dtype)) for _ in range(3)]
+    flat = [p for ln in lns for p in ln]
+    before = _build.launches["pooled_heads_attention"]
+    got = pooled_heads_attention(q, k, v, *flat, h, hd ** -0.5, residual)
+    assert _build.launches["pooled_heads_attention"] == before + 1
+    # K9's LN statistics are float64: in float32 it is held to the plain
+    # version in float64 (the float32 fast variance cancels)
+    wide = (lambda x: x.double()) if dtype == torch.float32 else (
+        lambda x: x)
+    want = pooled_attention_reference(
+        wide(q), wide(k), wide(v), *[tuple(map(wide, ln)) for ln in lns], h,
+        hd ** -0.5, residual)
+    _close(got, want.to(dtype), dtype)
+
+
+def test_heads_functions_carry_gradients(gen):
+    """K8's and K9's autograd Functions differentiate the plain formulas."""
+    dtype = torch.float32
+    q, k, v = (_randn(gen, 13, 65, 4, 16) for _ in range(3))
+    g = _randn(gen, 13, 65, 4, 16)
+    for res in (False, True):
+        got = _grads_through(
+            lambda *a: fused_attention_heads(*a, 0.25, res), (q, k, v), g)
+        want = _grads_through(
+            lambda *a: attention_reference_heads(*a, 0.25, res), (q, k, v), g)
+        for x, y in zip(got, want):
+            _close(x, y, dtype)
+    qkv = tuple(_randn(gen, 7, 65, 64) for _ in range(3))
+    lns = tuple(p for _ in range(3) for p in (1 + 0.2 * _randn(gen, 4),
+                                              0.1 * _randn(gen, 4)))
+    g = _randn(gen, 7, 65, 64)
+    got = _grads_through(lambda *a: pooled_heads_attention(*a, 16, 0.5),
+                         qkv + lns, g)
+    want = _grads_through(
+        lambda q, k, v, a, b, c, d, e, f: pooled_attention_reference(
+            q, k, v, (a, b), (c, d), (e, f), 16, 0.5), qkv + lns, g)
+    for x, y in zip(got, want):
+        _close_summed(x, y, dtype)
+
+
+def test_heads_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    q = _randn(gen, 2, 513, 4, 16)
+    with pytest.raises(ValueError, match="n <= 512"):
+        fused_attention_heads(q, q, q, 0.25)
+    q = _randn(gen, 2, 9, 4, 16)
+    with pytest.raises(ValueError, match="share their strides"):
+        fused_attention_heads(q, q.contiguous().clone().transpose(0, 1)
+                              .contiguous().transpose(0, 1), q, 0.25)
+    with pytest.raises(ValueError, match="heads contiguous"):
+        t = q.transpose(2, 3).contiguous().transpose(2, 3)
+        fused_attention_heads(t, t, t, 0.25)
+    x = _randn(gen, 2, 512, 256)
+    ln = _randn(gen, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        pooled_heads_attention(x, x, x, *(ln,) * 6, 64, 0.5)

@@ -61,6 +61,10 @@ def test_flagship_step_cpu(tiny_scene):
     ("nvjet_tst_128x64", "GEMM"),
     ("void at::native::vectorized_elementwise_kernel<4>", "elementwise/copy/cast"),
     ("multi_tensor_apply_kernel", "optimizer"),
+    ("heads_kernel<__nv_bfloat16, 16>", "K8 heads attention"),
+    ("pooled_kernel<__nv_bfloat16, 4>", "K9 pooled attention"),
+    ("attention_kernel<__nv_bfloat16>", "K4 attention forward"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_ndhwc", "conv"),
 ])
 def test_profile_families(kernel, family):
     assert profile_train.family(kernel) == family

@@ -10,8 +10,10 @@ runs its plain PyTorch version on CPU tensors and the kernel on CUDA
 tensors.
 
 Ported so far: supervised training and full-scene serving of
-``Multimodality_Mamba``; each kernel's autograd Function has a CUDA
-adjoint where the JAX package has a Pallas one.
+``Multimodality_Mamba`` (each kernel's autograd Function has a CUDA
+adjoint where the JAX package has a Pallas one), and full-scene serving
+of the transformer zoo (MHST, SpectralFormer, S2EFT, GLT_Net). The
+package imports nothing of ``vit_cnn_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -6,7 +6,7 @@ names and defaults. Run as::
   python -m vit_cnn_tpu_torch --dataset Synthetic --bf16 \\
       --epoch 10 --batch_size 1024 --flip_augmentation     # train
   python -m vit_cnn_tpu_torch --dataset Synthetic \\
-      --model Multimodality_Mamba --bf16 --serve            # serve
+      --model MHST --bf16 --serve                           # serve
 
 Without ``--serve`` the run is one run of the JAX ``run_experiments``:
 split, model, pipelines, ``Trainer.fit``, the full-scene map of the best
@@ -31,7 +31,8 @@ from ..data import compute_imf_weights, dataset_names, get_dataset
 from ..data.sampling import sample_gt
 from ..infer.fullscene import full_scene_probabilities
 from ..infer.server import SceneServer
-from ..models.registry import get_model, model_names
+from ..metrics import metrics
+from ..models.registry import SERVE_ONLY, get_model, model_names
 from ..nn.layers import init_parameters
 from ..pipeline.patches import AugmentConfig, PatchPipeline
 from ..train.loop import Trainer
@@ -44,7 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dataset", type=str, default="MUUFL",
                         choices=dataset_names(), help="Dataset to use.")
     parser.add_argument("--model", type=str, default="Multimodality_Mamba",
-                        help="Model to serve. Available: " +
+                        help="Model to train or serve. Available: " +
                              ", ".join(model_names()))
     parser.add_argument("--folder", type=str, default="./Datasets/",
                         help="Folder where the datasets are stored.")
@@ -145,8 +146,11 @@ def run_train(args, state_dict: Optional[Dict[str, torch.Tensor]] = None
     full-scene map of the best weights in a model of their own, and
     OA/AA/Kappa against the test split. Prints one JSON line on stdout and
     returns it as a dict."""
-    from vit_cnn_tpu.metrics.classification import metrics
-
+    if args.model in SERVE_ONLY:
+        raise NotImplementedError(
+            "{} is ported for --serve only: training the transformer zoo "
+            "is ROADMAP Queue 1, 'transformer zoo training'".format(
+                args.model))
     device = _device(args.device)
     (img1, img2, gt, label_values, ignored_labels, rgb_bands,
      palette) = get_dataset(args.dataset, args.folder)

@@ -1,14 +1,17 @@
 """Flax variables <-> the port's ``state_dict``.
 
 The port's module tree mirrors the flax tree name for name, so a flax path
-``a/b/leaf`` maps to the key ``a.b.<leaf'>`` with these leaf rules (the
-inverse of the torch -> flax helpers in tests/test_reference_parity.py):
+``a/b/leaf`` maps to the key ``a.b.<leaf'>``. The rule for a leaf is
+picked by the port module that owns it (the module at ``a.b``), never by
+the array's shape; a ``kernel`` goes by the module's ``flax_kernel``:
 
-  params/.../kernel  (in, out) Dense       -> weight (out, in)
-                     (kh, kw, in, out) Conv -> weight (out, in, kh, kw)
-                     (k, 1, d) conv1d taps  -> weight (k, d)
-  params/.../scale   LayerNorm / BatchNorm  -> weight
-  params/.../bias, pos_embed, A_log, D, direction_gate -> same name
+  params/.../kernel  "dense" (in, out)                 -> weight (out, in)
+                     "conv"  (*k, in / groups, out)     -> weight
+                             (out, in / groups, *k), 1-D to 3-D kernels
+                     "taps"  (k, 1, d) depthwise taps   -> weight (k, d)
+  params/.../scale   LayerNorm / BatchNorm             -> weight
+  params/.../<other> bias, pos_embed, A_log, cls_token, skipcat0, ...
+                                                       -> same name, shape
   batch_stats/.../mean, var                 -> running_mean, running_var
 
 Variables are nested dicts of numpy arrays (a flax variable tree after
@@ -28,10 +31,18 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from .nn.layers import ChannelLastBatchNorm, Conv, Dense, LayerNorm
-from .nn.mamba import CausalDWConv
+from .nn.layers import ChannelLastBatchNorm, LayerNorm
 
 _COLLECTIONS = ("params", "batch_stats")
+#: kernel layouts: flax array -> port weight, port weight -> flax array
+_KERNELS = {
+    "dense": (lambda a: a.T, lambda w: w.T),
+    "conv": (lambda a: a.transpose(a.ndim - 1, a.ndim - 2,
+                                   *range(a.ndim - 2)),
+             lambda w: w.transpose(*range(2, w.ndim), 1, 0)),
+    "taps": (lambda a: a[:, 0, :], lambda w: w[:, None, :]),
+}
+_NORMS = (LayerNorm, ChannelLastBatchNorm)
 
 
 def _flatten(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
@@ -43,24 +54,21 @@ def _flatten(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
             yield prefix + (k,), v
 
 
-def _leaf_to_port(col: str, path, arr: np.ndarray):
+def _leaf_to_port(col: str, path, arr: np.ndarray, mod: nn.Module):
     leaf = path[-1]
+    where = "{}/{}".format(col, "/".join(path))
     if col == "batch_stats":
         names = {"mean": "running_mean", "var": "running_var"}
         if leaf not in names:
-            raise KeyError("batch_stats/{}: not a BatchNorm statistic".format(
-                "/".join(path)))
+            raise KeyError("{}: not a BatchNorm statistic".format(where))
         return names[leaf], arr
     if leaf == "kernel":
-        if arr.ndim == 2:
-            return "weight", arr.T
-        if arr.ndim == 4:
-            return "weight", arr.transpose(3, 2, 0, 1)
-        if arr.ndim == 3 and arr.shape[1] == 1:
-            return "weight", arr[:, 0, :]
-        raise ValueError("params/{}: kernel of shape {} fits no rule".format(
-            "/".join(path), arr.shape))
-    if leaf == "scale":
+        layout = getattr(mod, "flax_kernel", None)
+        if layout not in _KERNELS:
+            raise KeyError("{}: the port module {} takes no kernel".format(
+                where, type(mod).__name__))
+        return "weight", _KERNELS[layout][0](arr)
+    if leaf == "scale" and isinstance(mod, _NORMS):
         return "weight", arr
     return leaf, arr
 
@@ -70,6 +78,7 @@ def flax_to_state_dict(variables: Dict, model: nn.Module
     """Map a flax variable tree onto ``model``'s state_dict keys, dtypes
     and shapes (strict in both directions)."""
     expected = model.state_dict()
+    modules = dict(model.named_modules())
     extra = set(variables) - set(_COLLECTIONS)
     if extra:
         raise KeyError("unknown variable collections: {}".format(
@@ -77,7 +86,12 @@ def flax_to_state_dict(variables: Dict, model: nn.Module
     out: Dict[str, torch.Tensor] = {}
     for col in _COLLECTIONS:
         for path, value in _flatten(variables.get(col, {})):
-            name, arr = _leaf_to_port(col, path, np.asarray(value))
+            owner = ".".join(path[:-1])
+            if owner not in modules:
+                raise KeyError("{}/{}: the port has no module {!r}".format(
+                    col, "/".join(path), owner))
+            name, arr = _leaf_to_port(col, path, np.asarray(value),
+                                      modules[owner])
             key = ".".join(path[:-1] + (name,))
             if key not in expected:
                 raise KeyError("{}/{} -> {}: the port has no such entry"
@@ -103,22 +117,27 @@ def state_dict_to_flax(model: nn.Module) -> Dict:
         mod = modules[prefix]
         arr = t.detach().float().cpu().numpy()
         col = "params"
+        layout = getattr(mod, "flax_kernel", None)
         if name in ("running_mean", "running_var"):
             col, name = "batch_stats", name[len("running_"):]
-        elif name == "weight" and isinstance(mod, (LayerNorm,
-                                                   ChannelLastBatchNorm)):
+        elif name == "weight" and isinstance(mod, _NORMS):
             name = "scale"
-        elif name == "weight" and isinstance(mod, Dense):
-            name, arr = "kernel", arr.T
-        elif name == "weight" and isinstance(mod, Conv):
-            name, arr = "kernel", arr.transpose(2, 3, 1, 0)
-        elif name == "weight" and isinstance(mod, CausalDWConv):
-            name, arr = "kernel", arr[:, None, :]
+        elif name == "weight" and layout in _KERNELS:
+            name, arr = "kernel", _KERNELS[layout][1](arr)
         node = tree[col]
         for part in prefix.split(".") if prefix else ():
             node = node.setdefault(part, {})
         node[name] = np.ascontiguousarray(arr)
     return tree
+
+
+#: learned tokens and positions of the transformer zoo
+_TOKEN_LEAVES = ("cls_token", "pos_embedding", "encoder_pos_embed",
+                 "decoder_pos_embed")
+#: learned mixing scalars of MHST and GLT_Net (shape (1,))
+_SCALAR_LEAVES = ("weight_hsi", "weight_lidar", "vit_cls_coefficient",
+                  "cnn_cls_coefficient", "xishu1", "xishu2", "coefficient1",
+                  "coefficient2")
 
 
 def seeded_variables(variables: Dict, seed: int) -> Dict:
@@ -138,7 +157,7 @@ def seeded_variables(variables: Dict, seed: int) -> Dict:
                 v = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
             elif leaf == "scale":
                 v = 1.0 + 0.2 * rng.randn(*shape)
-            elif leaf == "bias" and path[-2] == "dt_proj":
+            elif leaf == "bias" and path[-2:-1] == ("dt_proj",):
                 dt = np.exp(rng.rand(*shape) * (np.log(0.1) - np.log(1e-3))
                             + np.log(1e-3))
                 v = dt + np.log(-np.expm1(-dt))
@@ -153,6 +172,14 @@ def seeded_variables(variables: Dict, seed: int) -> Dict:
                 v = 0.5 * rng.randn(*shape)
             elif leaf == "pos_embed":
                 v = 0.02 * rng.randn(*shape)
+            elif leaf in _TOKEN_LEAVES:
+                v = 0.5 * rng.randn(*shape)
+            elif leaf in _SCALAR_LEAVES:
+                v = 0.5 + 0.1 * rng.randn(*shape)
+            elif leaf.startswith("skipcat") and leaf.endswith("_bias"):
+                v = 0.1 * rng.randn(*shape)
+            elif leaf.startswith("skipcat"):
+                v = rng.randn(*shape) / np.sqrt(shape[-1])
             else:
                 raise KeyError("{}/{}: no seeded rule".format(
                     col, "/".join(path)))

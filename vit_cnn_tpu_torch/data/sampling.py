@@ -10,8 +10,11 @@ run uses:
   ``StratifiedShuffleSplit._iter_indices``, ``_approximate_mode``) and
   drawing from numpy's global RandomState as scikit-learn does, so the
   same ``np.random.seed`` gives the same split;
-* ``random_fixednumber`` — N per class, through the JAX package's own
-  numpy ``sampling_fixed_num``.
+* ``random_fixednumber`` — N per class (:func:`sampling_fixed_num`, the
+  reference's RNG call order).
+
+:func:`compute_imf_weights` gives the inverse-median-frequency class
+weights of ``--class_balancing``.
 
 'fixed' and 'disjoint' raise (ROADMAP Queue 1, the CLI run loop).
 """
@@ -19,11 +22,51 @@ run uses:
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from vit_cnn_tpu.data.sampling import sampling_fixed_num
+
+def sampling_fixed_num(sample_num: int, ground_truth: np.ndarray,
+                       seed: int) -> Tuple[List[int], List[int]]:
+    """``sample_num`` flat indices per class 1..max(gt) for training, the
+    rest for testing (ref: utils.py:754-773), reproducing the reference's
+    RNG call order so the same seed gives the same split."""
+    np.random.seed(seed)
+    m = int(ground_truth.max())
+    train_, test_ = {}, {}
+    flat = ground_truth.ravel()
+    for i in range(m):
+        indices = np.nonzero(flat == i + 1)[0].tolist()
+        np.random.shuffle(indices)
+        train_[i] = indices[:sample_num]
+        test_[i] = indices[sample_num:]
+    train_fix: List[int] = []
+    test_fix: List[int] = []
+    for i in range(m):
+        train_fix += train_[i]
+        test_fix += test_[i]
+    np.random.shuffle(train_fix)
+    np.random.shuffle(test_fix)
+    return train_fix, test_fix
+
+
+def compute_imf_weights(ground_truth: np.ndarray, n_classes: int = None,
+                        ignored_classes: Sequence[int] = ()) -> np.ndarray:
+    """Inverse-median-frequency class weights (ref: utils.py:849-881)."""
+    n_classes = int(np.max(ground_truth)) if n_classes is None else n_classes
+    weights = np.zeros(n_classes)
+    frequencies = np.zeros(n_classes)
+    for c in range(n_classes):
+        if c in ignored_classes:
+            continue
+        frequencies[c] = np.count_nonzero(ground_truth == c)
+    frequencies /= np.sum(frequencies)
+    idx = np.nonzero(frequencies)
+    median = np.median(frequencies[idx])
+    weights[idx] = median / frequencies[idx]
+    weights[frequencies == 0] = 0.0
+    return weights
 
 
 def _approximate_mode(class_counts: np.ndarray, n_draws: int,

@@ -83,7 +83,8 @@ def full_scene_probabilities(model: torch.nn.Module, img1: np.ndarray,
                              cache: Optional[SceneCache] = None
                              ) -> np.ndarray:
     """Class-score map (H, W, n_classes) of ``model`` (eval mode) over a
-    scene, on the model's device.
+    scene, on the model's device. A model that returns a tuple (GLT_Net's
+    ``(logits, con_loss)``) contributes its first entry.
 
     ``hyperparams["bf16"]`` serves under the bf16 policy (the model is
     cast in place, the scene is held in bf16, the map accumulates in
@@ -123,8 +124,9 @@ def full_scene_probabilities(model: torch.nn.Module, img1: np.ndarray,
     for x0 in range(0, total + t_pad, rows):
         band1 = scene1[x0:x0 + rows + p - 1]
         band2 = scene2[x0:x0 + rows + p - 1]
-        logits = apply_fn(band_patches(band1, rows, p),
-                          band_patches(band2, rows, p))
+        out = apply_fn(band_patches(band1, rows, p),
+                       band_patches(band2, rows, p))
+        logits = out[0] if isinstance(out, tuple) else out
         block = logits.reshape(rows, wc, -1).float()
         # padding origin rows land inside the image for P >= 3: mask them
         valid = (x0 + row_ids < total).float()

@@ -10,7 +10,7 @@ Request fields (all optional):
   out          path to save the (H, W, n_classes) probability map (.npy)
   pred         path to save the argmax label map (.npy)
   gt           path to a ground-truth map; the response then carries
-               OA/AA/Kappa (vit_cnn_tpu.metrics.classification)
+               OA/AA/Kappa (vit_cnn_tpu_torch.metrics)
   stride       test stride override (only 1 is ported)
   cmd          "quit" ends the loop
 
@@ -27,13 +27,13 @@ from typing import Dict, Optional, TextIO
 import numpy as np
 import torch
 
+from ..data.io import load_mat_key, open_file
+from ..metrics import metrics
 from .fullscene import SceneCache, full_scene_probabilities
 
 
 def load_array(spec: str) -> np.ndarray:
     """Load ``path.npy`` or ``path.mat:key``."""
-    from vit_cnn_tpu.data.io import load_mat_key, open_file
-
     if ".mat:" in spec:
         path, key = spec.rsplit(":", 1)
         return np.asarray(load_mat_key(path, key))
@@ -90,8 +90,6 @@ class SceneServer:
                 np.save(req["pred"], pred)
                 resp["pred"] = req["pred"]
             if req.get("gt"):
-                from vit_cnn_tpu.metrics.classification import metrics
-
                 gt = self._scene(req["gt"], None)
                 m = metrics(pred, gt, ignored_labels=self.ignored_labels,
                             n_classes=int(self.hp["n_classes"]))

@@ -1,6 +1,8 @@
 """Model registry: name -> (constructor, default hyperparameters).
 
-Port of :mod:`vit_cnn_tpu.models.registry` for the models ported so far.
+Port of :mod:`vit_cnn_tpu.models.registry` for the models ported so far:
+the flagship, and the transformer zoo (SpectralFormer, S2EFT, MHST,
+GLT_Net) for serving.
 ``get_model`` fills hyperparameters with the same setdefault semantics
 and returns (module, spec, filled hyperparameters); the module's
 parameters are empty until :func:`vit_cnn_tpu_torch.nn.layers.
@@ -42,11 +44,60 @@ def _build_mm_mamba(hp):
                               n_classes=hp["n_classes"])
 
 
+def _build_spectralformer(hp):
+    from .spectralformer import SpectralFormer
+
+    return SpectralFormer(num_patches=hp["n_bands"][0] + hp["n_bands"][1],
+                          n_classes=hp["n_classes"], dim=64, depth=5,
+                          heads=4, mlp_dim=8, mode="ViT")
+
+
+def _build_s2eft(hp):
+    from .s2eft import S2EFT
+
+    return S2EFT(num_patches=hp["n_bands"][0], patch_size=hp["patch_size"],
+                 n_classes=hp["n_classes"], dim=64, depth=5, heads=4,
+                 mlp_dim=8, mode="CAF", near_band=3)
+
+
+def _build_mhst(hp):
+    from .mhst import MHST
+
+    return MHST(n_bands1=hp["n_bands"][0], n_bands2=hp["n_bands"][1],
+                patch_size=hp["patch_size"], n_classes=hp["n_classes"],
+                encoder_embed_dim=64, en_depth=5, en_heads=4, mlp_dim=8,
+                coefficient_hsi=0.6, coefficient_vit=0.7, hsp_vit_depth=8,
+                hsp_vit_num_heads=16)
+
+
+def _build_glt(hp):
+    from .glt_net import GLTNet
+
+    return GLTNet(n_bands1=hp["n_bands"][0], n_bands2=hp["n_bands"][1],
+                  patch_size=hp["patch_size"], n_classes=hp["n_classes"],
+                  encoder_embed_dim=64,
+                  decoder_embed_dim=32, en_depth=5, en_heads=4, de_depth=5,
+                  de_heads=4, mlp_dim=8)
+
+
+# defaults cited from ref: model_utils.py (line ranges per entry)
 MODELS: Dict[str, ModelSpec] = {
+    "SpectralFormer": ModelSpec("SpectralFormer", _build_spectralformer,
+                                patch_size=1, lr=5e-4,
+                                epochs=300),                        # :377-399
+    "S2EFT": ModelSpec("S2EFT", _build_s2eft, patch_size=7, lr=5e-4,
+                       epochs=600),                                 # :400-423
+    "MHST": ModelSpec("MHST", _build_mhst, patch_size=8, lr=8e-4,
+                      optimizer="adamw", epochs=1000),              # :314-335
+    "GLT_Net": ModelSpec("GLT_Net", _build_glt, loss="glt", patch_size=8,
+                         lr=5e-4, optimizer="adamw", epochs=200),   # :336-350
     "Multimodality_Mamba": ModelSpec("Multimodality_Mamba", _build_mm_mamba,
                                      patch_size=9, lr=8e-4,
-                                     optimizer="adamw", epochs=200),
+                                     optimizer="adamw",
+                                     epochs=200),                   # :297-313
 }
+#: models the port can serve but not yet train
+SERVE_ONLY = ("SpectralFormer", "S2EFT", "MHST", "GLT_Net")
 
 
 def model_names():
@@ -56,8 +107,8 @@ def model_names():
 def get_model(name: str, **kwargs):
     if name not in MODELS:
         raise KeyError(
-            "{} is not ported to PyTorch yet (ported: {}); the rest of the "
-            "zoo is ROADMAP Queue 1, items 1 and 9".format(name, model_names()))
+            "{} is not ported to PyTorch yet (ported: {}); the CNN zoo "
+            "is ROADMAP Queue 1, 'CNN zoo'".format(name, model_names()))
     spec = MODELS[name]
     kwargs.setdefault("patch_size", spec.patch_size)
     kwargs.setdefault("lr", spec.lr)

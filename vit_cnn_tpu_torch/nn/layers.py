@@ -30,6 +30,8 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator):
 class Dense(nn.Module):
     """flax ``nn.Dense``: y = x W^T + b with W (out, in)."""
 
+    flax_kernel = "dense"    # convert.py: (in, out) <-> (out, in)
+
     def __init__(self, in_features: int, out_features: int,
                  use_bias: bool = True):
         super().__init__()
@@ -46,40 +48,62 @@ class Dense(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class Conv(nn.Module):
-    """flax ``nn.Conv`` on NHWC with VALID padding, weight OIHW."""
+def _per_dim(v, nd: int) -> tuple:
+    return (int(v),) * nd if isinstance(v, int) else tuple(int(x) for x in v)
 
-    def __init__(self, in_features: int, out_features: int,
-                 kernel: int = 1, use_bias: bool = True):
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` on channel-last input with 1, 2 or 3 spatial dims
+    (NWC, NHWC, NDHWC; ``kernel`` an int is a square 2-D kernel). Weight
+    (out, in / groups, *kernel); symmetric zero ``padding`` per spatial
+    dim (flax's ``padding=p`` or ``((p, p), ...)``), ``strides`` and
+    ``groups`` (flax ``feature_group_count``). VALID by default."""
+
+    flax_kernel = "conv"     # convert.py: (*k, in/g, out) <-> (out, in/g, *k)
+
+    def __init__(self, in_features: int, out_features: int, kernel=1,
+                 strides=1, padding=0, groups: int = 1,
+                 use_bias: bool = True):
         super().__init__()
+        kernel = (kernel, kernel) if isinstance(kernel, int) else tuple(kernel)
+        if in_features % groups or out_features % groups:
+            raise ValueError("{} -> {} channels do not split into {} groups"
+                             .format(in_features, out_features, groups))
+        self.strides = _per_dim(strides, len(kernel))
+        self.padding = _per_dim(padding, len(kernel))
+        self.groups = groups
         self.weight = nn.Parameter(
-            torch.empty(out_features, in_features, kernel, kernel))
+            torch.empty(out_features, in_features // groups, *kernel))
         self.bias = (nn.Parameter(torch.empty(out_features)) if use_bias
                      else None)
 
     def reset_parameters(self, g: torch.Generator):
-        o, i, kh, kw = self.weight.shape
-        _lecun_normal_(self.weight, i * kh * kw, g)
+        _lecun_normal_(self.weight, self.weight[0].numel(), g)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        if self.weight.shape[2:] == (1, 1):
-            return F.linear(x, self.weight[:, :, 0, 0], self.bias)
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias)
-        return y.permute(0, 2, 3, 1)
+        nd = self.weight.dim() - 2
+        if (self.weight[0, 0].numel() == 1 and self.groups == 1
+                and not any(self.padding) and set(self.strides) == {1}):
+            return F.linear(x, self.weight.reshape(self.weight.shape[:2]),
+                            self.bias)
+        conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
+        y = conv(x.movedim(-1, 1), self.weight, self.bias, self.strides,
+                 self.padding, 1, self.groups)
+        return y.movedim(1, -1)
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm`` with eps 1e-6 (every LN of the flagship):
-    float32 statistics (float64 for float64 x) with the fast variance
-    E[x^2] - E[x]^2 (clipped at 0), result in x's dtype. torch's own
-    layer_norm takes the two-pass variance and differs in the last bits."""
+    """flax ``nn.LayerNorm``: float32 statistics (float64 for float64 x)
+    with the fast variance E[x^2] - E[x]^2 (clipped at 0), result in x's
+    dtype. torch's own layer_norm takes the two-pass variance and differs
+    in the last bits. ``eps`` defaults to flax's 1e-6 (every LN of the
+    flagship); the ViT backbone and MHST use 1e-5."""
 
-    eps = 1e-6
-
-    def __init__(self, features: int):
+    def __init__(self, features: int, eps: float = 1e-6):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.empty(features))
         self.bias = nn.Parameter(torch.empty(features))
 
@@ -157,6 +181,11 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         return self.bn(x)
+
+
+def gelu(x):
+    """flax ``nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
 
 
 def max_pool_2x2(x):

@@ -45,6 +45,8 @@ class CausalDWConv(nn.Module):
     """Taps of the depthwise k-tap conv along tokens: weight (k, d),
     bias (d,). The fused directional kernel consumes them directly."""
 
+    flax_kernel = "taps"     # convert.py: (k, 1, d) <-> (k, d)
+
     def __init__(self, features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(CONV_KERNEL, features))

@@ -43,7 +43,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: kernel (plain CPU calls do not count)
 launches: collections.Counter = collections.Counter()
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
 _SIGNATURES = {
     "vct_selective_scan": [_I, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P],
@@ -52,6 +53,10 @@ _SIGNATURES = {
     "vct_inv_perm_weighted_sum": [_I, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P],
     "vct_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "vct_heads_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F,
+                            _I, _P],
+    "vct_pooled_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                             _P],
     "vct_selective_scan_bwd": [_I] + [_P] * 14 + [_I] * 6 + [_P],
     "vct_dir_conv_silu_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_P],
     "vct_inv_perm_weighted_sum_bwd": [_I] + [_P] * 11 + [_I] * 5 + [_P],

@@ -2,10 +2,11 @@
 
   python -m vit_cnn_tpu_torch.tools.profile_train       # step profile
   python -m vit_cnn_tpu_torch.tools.train_conditioning  # gradient spread
+  python -m vit_cnn_tpu_torch.tools.profile_serve       # serving profile
 
-Both build the flagship as ``chip_smoke.py`` does: ``Multimodality_Mamba``
-at Houston2013 width on the Synthetic scene at 349 x 1905, with the seeded
-weights of ``convert.seeded_state_dict``.
+Each builds its models as ``chip_smoke.py`` does: at Houston2013 width on
+the Synthetic scene at 349 x 1905, with the seeded weights of
+``convert.seeded_state_dict``.
 """
 
 from __future__ import annotations

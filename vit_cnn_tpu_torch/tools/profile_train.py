@@ -42,11 +42,14 @@ _FAMILIES = (
     ("inv_perm_weighted_sum_bwd", "K7 inv-sum backward"),
     ("inv_perm_weighted_sum_kernel", "K3 inv-sum forward"),
     ("sum_partials", "K5-K7 partial sums"),
+    ("heads_kernel", "K8 heads attention"),
+    ("pooled_kernel", "K9 pooled attention"),
     ("attention", "K4 attention forward"),
 )
 _PLAIN = (
+    # cuDNN's convolutions run as implicit GEMMs: match them first
+    (("conv", "cudnn", "implicit", "winograd", "fprop"), "conv"),
     (("gemm", "nvjet", "cutlass", "xmma", "sm90_", "cublas"), "GEMM"),
-    (("conv", "cudnn", "implicit", "winograd"), "conv"),
     (("multi_tensor", "adam"), "optimizer"),
     (("index", "gather", "scatter"), "index/gather/scatter"),
     (("reduce", "norm", "softmax"), "reductions/softmax"),
