@@ -43,6 +43,15 @@ the result lines:
 8. zoo-crop — each zoo model on a 12 x 64 crop on the card (float32 and
    bf16) and on the CPU in float32, held to phase 4's limits; for MHST
    the number of head selections that differ between card and CPU.
+9. variants — run right after phase 2: the kernel-tuning sweeps
+   (``tools/scan_sweep.py``, ``tools/heads_attn_variants.py``) at their
+   shapes with fewer repetitions, plus a ragged batch and one token. K1's
+   (channels per block, time chunk) grid (V1) and the batch-major scan
+   (V2) beside K1 and K1 fed by permute copies; the tensor-core (V3,
+   per-head and head-masked) and CUDA-core outer-product (V4) forms of
+   head-last attention beside K8 and SDPA. Every variant against its
+   plain version, V1's (8, 8) instance bit for bit against K1, and each
+   variant kernel launched.
 
 Phase 2 also holds K8 and K9 (float32 and bf16, at every zoo band shape,
 a ragged batch and one token) and times them beside their plain versions,
@@ -50,7 +59,8 @@ a ragged batch and one token) and times them beside their plain versions,
 for K9, the composition of the plain group LayerNorm with K8.
 
 Then one JSON line with the kernel table (time, plain time, bound and what
-bounds it, library time, launches per path), and as the last line
+bounds it, library time, launches per path: serve, train, serve_zoo and
+sweep), and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -58,7 +68,6 @@ import functools
 import io
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -70,7 +79,6 @@ SEED = 0
 BAND_WINDOWS = 4 * 1897       # windows per band at --infer_chunk 8192
 RAGGED = 1001
 TRAIN_BATCH = 1024
-TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 2e-2)}   # (rtol, atol)
 CROP_TOL = 1e-3               # max|diff| of the f32 crop map, relative
 # train-crop, card f32 against CPU f32 (plain versions):
 # - the whole step's gradients, per tensor: ||diff|| <= GRAD_TOL * ||cpu||
@@ -114,45 +122,36 @@ ZOO_LAUNCHES = {"MHST": (430, 688), "SpectralFormer": (440, 0),
 # windows per band: 4 origin rows x (1905 - patch + 1)
 ZOO_BANDS = {"MHST": 4 * 1898, "SpectralFormer": 4 * 1905,
              "S2EFT": 4 * 1899}
-# peaks of the H100 SXM data sheet, for the bounds: HBM bytes/s, special-
-# function-unit exps/s (16 / clock / SM x 132 SMs x 1.98 GHz), FLOP/s by
-# input type (bf16 on the tensor cores, float32 on the CUDA cores)
-PEAK_BYTES, PEAK_EXPS = 3.35e12, 4.2e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# phase 9: the sweep tools' variant kernels (rows 10-13 of the table);
+# their cases at fewer repetitions, plus a ragged batch and one token
+VARIANTS = ("selective_scan_tiled", "selective_scan_batch_major",
+            "heads_attention_mma", "heads_attention_outer")
+SWEEP_REPS, SWEEP_PLAIN_REPS = 3, 1
+RAGGED_SCANS = (("ragged", 6, 81, 72, RAGGED, False),
+                ("ragged", 4, 81, 72, RAGGED, True))
+RAGGED_HEADS = (("ragged", RAGGED, 65, 16, 4), ("ragged", RAGGED, 65, 4, 16),
+                ("one token", RAGGED, 1, 16, 4),
+                ("one token", RAGGED, 1, 4, 16))
 
 
 class Failed(Exception):
     pass
 
 
-def _median_ms(fn, reps=10):
-    import torch
-
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def _compare(name, got, want, dtype_name, summed=()):
     """max|diff| of the kernel's output against the plain version's, held
-    to |d| <= atol + rtol * |want| elementwise; the outputs listed in
-    ``summed`` to |d| <= atol + rtol * max|want|. Those are the adjoints'
-    sums: dA, dD, dcw, dcb and dw add up ~10^5 float32 terms, and every
-    K5 output is a sum over the state or the channels whose terms
-    cancel, so an entry near zero keeps the rounding of its large terms
-    (the two sides' exp and reduction order differ on the card). K6's du
-    (at most 40 terms per entry) and K7's dy are held elementwise. A
-    summed output's line reports max|diff| / max|want|."""
+    elementwise to the dtype's limits (``tools.compare``: |d| <= atol +
+    rtol * |want|); the outputs listed in ``summed`` to |d| <= atol + rtol
+    * max|want|. Those are the adjoints' sums: dA, dD, dcw, dcb and dw add
+    up ~10^5 float32 terms, and every K5 output is a sum over the state or
+    the channels whose terms cancel, so an entry near zero keeps the
+    rounding of its large terms (the two sides' exp and reduction order
+    differ on the card). K6's du (at most 40 terms per entry) and K7's dy
+    are held elementwise. A summed output's line reports max|diff| /
+    max|want|."""
     import torch
+
+    from vit_cnn_tpu_torch.tools import TOL, compare
 
     rtol, atol = TOL[dtype_name]
     outs_g = got if isinstance(got, (tuple, list)) else (got,)
@@ -161,16 +160,15 @@ def _compare(name, got, want, dtype_name, summed=()):
     for i, (g, w) in enumerate(zip(outs_g, outs_w)):
         if g.numel() == 0:
             continue
-        g, w = g.float(), w.float()
-        d = (g - w).abs()
-        worst = max(worst, float(d.max()))
-        ref = w.abs().max() if i in summed else w.abs()
-        ok &= bool(torch.isfinite(g).all()) and bool(
-            (d <= atol + rtol * ref).all())
         if i in summed:
+            g, w = g.float(), w.float()
+            d, top = float((g - w).abs().max()), float(w.abs().max())
+            this_ok = bool(torch.isfinite(g).all()) and d <= atol + rtol * top
             print("    output {}: max|diff| {:.3e} of max|want| {:.3e}"
-                  .format(i, float(d.max()), float(w.abs().max())),
-                  flush=True)
+                  .format(i, d, top), flush=True)
+        else:
+            d, this_ok = compare(g, w, dtype_name)
+        worst, ok = max(worst, d), ok and this_ok
     print("  {:<44s} {:<8s} max|diff| {:.3e}  (rtol {:g}, atol {:g})  {}"
           .format(name, dtype_name, worst, rtol, atol,
                   "ok" if ok else "FAIL"), flush=True)
@@ -193,18 +191,6 @@ def _record(rows, key, err, dtype_name, ms=None, plain_ms=None,
         row["ms"], row["plain_ms"] = ms, plain_ms
         row["bound_ms"], row["bound_by"] = bound
         row.update(timed)
-
-
-def _bound(tensors, dtype_name, exps=0, flops=0):
-    """(bound_ms, bound_by) of one call: the larger of the bytes of its
-    inputs and outputs (``tensors``, each read or written once) over the
-    HBM rate and its operations over their peak rate (exps on the
-    special-function units, FLOPs at the rate of the inputs' type)."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(exps / PEAK_EXPS, flops / PEAK_FLOPS[dtype_name])
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                        else "operations")
 
 
 def phase_device():
@@ -232,23 +218,6 @@ def phase_device():
     return card
 
 
-def _scan_inputs(g, ns, L, d, n, b, dtype):
-    import torch
-
-    dev = "cuda"
-    u = torch.randn((ns, L, d, b), generator=g, device=dev)
-    dt = torch.nn.functional.softplus(
-        torch.randn((ns, L, d, b), generator=g, device=dev) - 2.0)
-    B = torch.randn((ns, L, n, b), generator=g, device=dev)
-    C = torch.randn((ns, L, n, b), generator=g, device=dev)
-    A = -torch.exp(torch.log(torch.arange(1, n + 1, device=dev,
-                                          dtype=torch.float32))[None]
-                   .expand(d, n) + 0.1 * torch.randn((d, n), generator=g,
-                                                     device=dev))
-    D = 1.0 + 0.1 * torch.randn((d,), generator=g, device=dev)
-    return (u.to(dtype), dt.to(dtype), A, B.to(dtype), C.to(dtype), D)
-
-
 def _tables(L):
     import numpy as np
     import torch
@@ -271,6 +240,9 @@ def phase_kernels():
     import torch.nn.functional as F
 
     from vit_cnn_tpu_torch.ops import attention, dirstream, selective_scan
+    from vit_cnn_tpu_torch.tools import bound as _bound
+    from vit_cnn_tpu_torch.tools import median_ms as _median_ms
+    from vit_cnn_tpu_torch.tools import scan_inputs as _scan_inputs
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     stages = [(81, 72), (49, 128)]          # (L, d) of hsi1 and hsi2
@@ -394,6 +366,8 @@ def phase_heads_kernels(rows):
     import torch.nn.functional as F
 
     from vit_cnn_tpu_torch.ops import attention
+    from vit_cnn_tpu_torch.tools import bound as _bound
+    from vit_cnn_tpu_torch.tools import median_ms as _median_ms
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     record = functools.partial(_record, rows)
@@ -499,6 +473,9 @@ def phase_adjoints(rows):
     import torch
 
     from vit_cnn_tpu_torch.ops import attention, dirstream, selective_scan
+    from vit_cnn_tpu_torch.tools import bound as _bound
+    from vit_cnn_tpu_torch.tools import median_ms as _median_ms
+    from vit_cnn_tpu_torch.tools import scan_inputs as _scan_inputs
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
@@ -628,6 +605,78 @@ def phase_adjoints(rows):
                         q, k, v, (a, b), (c, d), (e, f), 16, 0.5), pooled_in,
                     cot), "float32", summed=range(3, 9))
     torch.cuda.synchronize()
+
+
+def phase_variants(rows):
+    """The two sweep tools' functions (tools/scan_sweep.py,
+    tools/heads_attn_variants.py) at their cases with fewer repetitions,
+    plus a ragged batch and one token: every variant against its plain
+    version (``tools.TOL``, as every kernel here: V1, V2 and V4 in float32
+    and bf16; V3 in bf16 only, held to bf16's limit since it rounds
+    P to bf16 before P.V as the TPU probes' F and G do; V1's (8, 8)
+    instance bit for bit equal to K1, forward and reverse), timed beside
+    K1 or K8, the plain version and SDPA. Adds rows 10-13 to the JSON
+    rows and returns the run's launches (the path ``sweep``)."""
+    import torch
+
+    from vit_cnn_tpu_torch.ops import _build
+    from vit_cnn_tpu_torch.tools import (all_ok, heads_attn_variants,
+                                         scan_sweep)
+
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    scans, heads = [], []
+    for case in scan_sweep.CASES + RAGGED_SCANS:
+        for dtype in scan_sweep.DTYPES:
+            scans.append(scan_sweep.sweep(*case, dtype, reps=SWEEP_REPS,
+                                          plain_reps=SWEEP_PLAIN_REPS))
+            print("[variants] {}".format(json.dumps(scans[-1])), flush=True)
+            torch.cuda.empty_cache()
+    for shape in heads_attn_variants.SHAPES + RAGGED_HEADS:
+        for dtype in heads_attn_variants.DTYPES:
+            heads.append(heads_attn_variants.sweep(
+                *shape, dtype, reps=SWEEP_REPS, plain_reps=SWEEP_PLAIN_REPS))
+            print("[variants] {}".format(json.dumps(heads[-1])), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()     # the float32 scans' GBs, unused after
+    counts = dict(_build.launches)
+    print("[variants] {}".format(json.dumps(scan_sweep.summary(scans))),
+          flush=True)
+    print("[variants] {}".format(json.dumps(
+        heads_attn_variants.summary(heads))), flush=True)
+    print("[variants] {:.1f} s, launches {}".format(
+        time.perf_counter() - t0, json.dumps(counts)), flush=True)
+    bad = [(r.get("case", r.get("shape")), r["dtype"], r.get("reverse"),
+            [v["variant"] for v in r["variants"] if not v["ok"]])
+           for r in scans + heads if not all_ok(r)]
+    if bad:
+        raise Failed("variants disagree with their plain versions (V1's "
+                     "(8, 8) instance: or with K1's bits): {}".format(bad))
+    missing = [k for k in VARIANTS if counts.get(k, 0) <= 0]
+    if missing:
+        raise Failed("variant kernels never launched: {}".format(missing))
+
+    record = functools.partial(_record, rows)
+    for r in scans + heads:
+        for v in r["variants"]:
+            if v["kernel"] in VARIANTS:
+                record(v["kernel"], v["max_abs_err"], r["dtype"])
+    # timed row: the best instance at the main band shape in bf16 (the
+    # flagship's stage 1 forward over 6 streams; MHST's pooled band)
+    main_scan = next(r for r in scans if r["case"] == "serving stage 1"
+                     and not r["reverse"] and r["dtype"] == "bfloat16")
+    main_heads = next(r for r in heads if r["shape"] == "MHST pooled band"
+                      and r["dtype"] == "bfloat16")
+    for key, res in ((VARIANTS[0], main_scan), (VARIANTS[1], main_scan),
+                     (VARIANTS[2], main_heads), (VARIANTS[3], main_heads)):
+        best = min((v for v in res["variants"] if v["kernel"] == key),
+                   key=lambda v: v["ms"])
+        record(key, 0.0, "bfloat16", best["ms"], best["plain_ms"],
+               (res["bound_ms"], res["bound_by"]), share=best["share"],
+               best=best["variant"], library_ms=best.get("library_ms"))
+    # V3 has no float32 path: its error is its bf16 one
+    rows[VARIANTS[2]]["max_abs_err"] = rows[VARIANTS[2]]["max_abs_err_bf16"]
+    return counts
 
 
 def _seeded_state(name, n_bands, n_classes):
@@ -1040,6 +1089,7 @@ def main():
         print("[kernels]", flush=True)
         rows = phase_kernels()
         phase_adjoints(rows)
+        sweep_counts = phase_variants(rows)
         with tempfile.TemporaryDirectory() as tmp:
             counts, _, state = phase_slice(tmp)
             phase_crop(tmp, state)
@@ -1073,20 +1123,41 @@ def main():
         "pooled_heads_attention": (
             "vit_cnn_tpu_torch/csrc/heads_attention.cu",
             "vit_cnn_tpu/ops/attention.py:314"),
+        "selective_scan_tiled": ("vit_cnn_tpu_torch/csrc/selective_scan.cu",
+                                 "perf/scan_sweep.py:47"),
+        "selective_scan_batch_major": (
+            "vit_cnn_tpu_torch/csrc/scan_variants.cu",
+            "perf/scan_bm_sweep.py:27"),
+        "heads_attention_mma": ("vit_cnn_tpu_torch/csrc/heads_variants.cu",
+                                "perf/mhst_attn_variants.py:111"),
+        "heads_attention_outer": ("vit_cnn_tpu_torch/csrc/heads_variants.cu",
+                                  "perf/mhst_attn_vpu.py:55"),
     }
+    # the probe variants each row 12 / 13 kernel also stands for
+    # (V3: F, G; V4: H, C, E, and A and B, whose float32 dots and float32 P
+    # are V4's arithmetic on bf16 inputs, not V3's bf16 operands)
+    also = {"heads_attention_mma": ["perf/mhst_attn_variants.py:90",
+                                    "perf/mhst_attn_vpu.py:79"],
+            "heads_attention_outer": ["perf/mhst_attn_variants.py:41",
+                                      "perf/mhst_attn_variants.py:58",
+                                      "perf/mhst_attn_variants.py:74",
+                                      "perf/mhst_attn_variants.py:138"]}
     # launches: the flagship forward kernels' count from its serving run,
     # the adjoints' from the training run, K8 and K9 from the zoo's
-    # serving runs (each run's counts were set to 0 just before it);
-    # launches_by_path has all three paths
+    # serving runs, the variants' from the sweep (each run's counts were
+    # set to 0 just before it); launches_by_path has all four paths
     zoo = {k: sum(c.get(k, 0) for c in zoo_counts.values())
            for k in sources}
-    paths = {"serve": counts, "train": train_counts, "serve_zoo": zoo}
+    paths = {"serve": counts, "train": train_counts, "serve_zoo": zoo,
+             "sweep": sweep_counts}
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
                   launches=paths["train" if name in ADJOINTS else
                                  "serve_zoo" if name in HEADS else
+                                 "sweep" if name in VARIANTS else
                                  "serve"].get(name, 0),
                   launches_by_path={k: c.get(name, 0)
                                     for k, c in paths.items()},
+                  **({"also_replaces": also[name]} if name in also else {}),
                   **rows[name])
              for name, (src, rep) in sources.items()]
     print("[train] {}".format(json.dumps(steady)), flush=True)

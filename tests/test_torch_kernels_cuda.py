@@ -9,8 +9,12 @@ against autograd through its plain version, and the summed gradients
 must be bitwise equal from one launch to the next. The head-last
 attention kernels (K8, K9) are held at one token, the zoo's token counts,
 the 512-token limit, head widths 4 / 12 / 16 / 32, ragged batches and
-the strided q / k / v views of a fused projection. chip_smoke.py covers
-the serving and training shapes.
+the strided q / k / v views of a fused projection. The tuning sweep's
+variants: every instance of K1's tile and chunk grid (V1) against the
+plain scan and bit for bit against K1, the batch-major scan (V2) at
+ragged batches, and the tensor-core (V3, bf16) and outer-product (V4)
+head-last attention at one token, 65 and 146 tokens, head widths 4 and 16
+and ragged batches. chip_smoke.py covers the serving and training shapes.
 
 These tests need a CUDA card and skip without one. On the GPU host:
 
@@ -46,6 +50,11 @@ from vit_cnn_tpu_torch.ops.dirstream import (
     inv_perm_weighted_sum, inv_perm_weighted_sum_backward,
     inv_perm_weighted_sum_backward_reference,
     inv_perm_weighted_sum_reference)
+from vit_cnn_tpu_torch.ops.heads_variants import (heads_attention_mma,
+                                                  heads_attention_outer)
+from vit_cnn_tpu_torch.ops.scan_variants import (
+    TILE_CHUNKS, TILE_ROWS, selective_scan_batch_major,
+    selective_scan_batch_major_reference, selective_scan_tiled)
 from vit_cnn_tpu_torch.ops.selective_scan import (
     selective_scan, selective_scan_backward,
     selective_scan_backward_reference, selective_scan_reference)
@@ -374,3 +383,72 @@ def test_heads_wrappers_refuse_what_the_kernels_do_not_take(gen):
     ln = _randn(gen, 4)
     with pytest.raises(ValueError, match="shared memory"):
         pooled_heads_attention(x, x, x, *(ln,) * 6, 64, 0.5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lead,L,d,n,b,reverse", [
+    ((6,), 81, 72, 16, 1001, False), ((4,), 49, 128, 16, 33, True),
+    ((), 13, 9, 4, 70, False), ((2,), 30, 5, 16, 1, True)])
+def test_every_tiled_scan_instance(gen, dtype, lead, L, d, n, b, reverse):
+    """Each (rows, chunk) instance of V1 against the plain scan; the (8, 8)
+    instance is K1 and gives K1's bits."""
+    args = _scan_args(gen, lead, L, d, n, b, dtype)
+    want = selective_scan_reference(*args, reverse)
+    k1 = selective_scan(*args, reverse=reverse)
+    for rows in TILE_ROWS:
+        for chunk in TILE_CHUNKS:
+            before = _build.launches["selective_scan_tiled"]
+            got = selective_scan_tiled(*args, reverse=reverse, rows=rows,
+                                       chunk=chunk)
+            assert _build.launches["selective_scan_tiled"] == before + 1
+            _close(got, want, dtype)
+            if (rows, chunk) == (8, 8):
+                assert torch.equal(got, k1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,L,d,n", [
+    (1001, 81, 72, 16), (333, 49, 128, 16), (7, 20, 300, 4), (5, 3, 1, 16)])
+def test_batch_major_scan(gen, dtype, b, L, d, n):
+    u, dt, A, B, C, D = _scan_args(gen, (), L, d, n, b, dtype)
+    bm = [x.permute(2, 0, 1).contiguous() for x in (u, dt, B, C)]
+    before = _build.launches["selective_scan_batch_major"]
+    got = selective_scan_batch_major(bm[0], bm[1], A, bm[2], bm[3], D)
+    assert _build.launches["selective_scan_batch_major"] == before + 1
+    _close(got, selective_scan_batch_major_reference(
+        bm[0], bm[1], A, bm[2], bm[3], D), dtype)
+
+
+@pytest.mark.parametrize("B,n,h,hd", [
+    (1001, 65, 16, 4), (3, 146, 4, 16), (1001, 1, 4, 16), (7, 1, 16, 4),
+    (33, 65, 4, 16), (5, 146, 16, 4), (9, 17, 3, 6)])
+def test_heads_attention_variants(gen, B, n, h, hd):
+    """V4 in float32 and bf16, V3 (bf16 only, per head and, where h * hd
+    is a multiple of 16 up to 128, head-masked) against the plain version.
+    V3 rounds P to bf16 before P.V: bf16's tolerance covers it."""
+    for dtype in DTYPES:
+        q, k, v = (_randn(gen, B, n, h, hd).to(dtype) for _ in range(3))
+        want = attention_reference_heads(q, k, v, hd ** -0.5)
+        before = _build.launches["heads_attention_outer"]
+        _close(heads_attention_outer(q, k, v, hd ** -0.5), want, dtype)
+        assert _build.launches["heads_attention_outer"] == before + 1
+        if dtype != torch.bfloat16:
+            continue
+        masks = (False, True) if (h * hd) % 16 == 0 and h * hd <= 128 \
+            else (False,)
+        for masked in masks:
+            before = _build.launches["heads_attention_mma"]
+            _close(heads_attention_mma(q, k, v, hd ** -0.5, masked), want,
+                   dtype)
+            assert _build.launches["heads_attention_mma"] == before + 1
+
+
+def test_variant_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    q = _randn(gen, 2, 9, 4, 16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        heads_attention_mma(q, q, q, 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = q.transpose(1, 2).contiguous().transpose(1, 2)
+        heads_attention_outer(t, t, t, 0.25)
+    with pytest.raises(ValueError, match="forward only"):
+        heads_attention_outer(q.requires_grad_(), q, q, 0.25)

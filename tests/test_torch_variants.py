@@ -1,0 +1,241 @@
+"""The plain versions behind the tuning sweep's variant kernels (the CPU
+path of vit_cnn_tpu_torch.ops.scan_variants and .heads_variants) against
+the JAX package's probes and kernels, on the same numpy inputs:
+
+* V1 (K1's tile and chunk grid) against ``perf/scan_sweep.py``
+  ``scan_lanemajor`` (bb 8, time chunk 4), forward and reverse, and V2
+  (batch-major I/O) against ``perf/scan_bm_sweep.py`` ``scan_bm`` (block_b
+  8), both Pallas kernels in interpret mode, loaded by path (the probes
+  are scripts, not modules of the package). (b, L, d, n) = (16, 9, 8, 4).
+* V3 (tensor cores) and V4 (outer products) against
+  ``vit_cnn_tpu.ops.attention.attention_reference_heads`` and the Pallas
+  ``fused_attention_heads`` in interpret mode, residual off, at 4 heads of
+  4 and 2 heads of 16 over 9 tokens. The attention probes run their
+  benchmark when imported, so they are not loaded.
+
+And the wrappers' dispatch: CPU tensors take the plain version and launch
+nothing; inputs that require a gradient, V3 in float32 and shapes outside
+a kernel's limits raise on any device.
+
+Tolerances: the scans rtol 1e-5 (atol 1e-6 for entries near zero; the
+same float32 recurrence, another summation order); V4 in float32 the JAX
+suite's op tolerance, rtol 2e-4 / atol 2e-5; V3 takes bf16, so it is held
+to the float32 result on the same bf16 values within the output's bf16
+rounding (rtol 2^-8, atol 1e-6).
+"""
+
+import importlib.util
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vit_cnn_tpu.ops import attention as jax_attention
+from vit_cnn_tpu_torch.ops import _build
+from vit_cnn_tpu_torch.ops.heads_variants import (heads_attention_mma,
+                                                  heads_attention_outer)
+from vit_cnn_tpu_torch.ops.scan_variants import (
+    TILE_CHUNKS, TILE_ROWS, selective_scan_batch_major,
+    selective_scan_batch_major_reference, selective_scan_tiled)
+
+PERF = os.path.join(os.path.dirname(__file__), os.pardir, "perf")
+SCAN_TOL = dict(rtol=1e-5, atol=1e-6)
+ATT_TOL = dict(rtol=2e-4, atol=2e-5)
+BF16_TOL = dict(rtol=2.0 ** -8, atol=1e-6)
+Bq, L, D, N = 16, 9, 8, 4
+HEADS = [(4, 4), (2, 16)]            # (h, hd) over 9 tokens, batch 4
+
+
+def _probe(name):
+    spec = importlib.util.spec_from_file_location(
+        "probe_" + name, os.path.join(PERF, name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture(scope="module")
+def scan_args():
+    """Batch-major (b, L, d) / (b, L, n) inputs, A (d, n), D (d,)."""
+    rng = np.random.RandomState(0)
+    u = rng.randn(Bq, L, D).astype(np.float32)
+    dt = (np.abs(rng.randn(Bq, L, D)) * 0.1 + 0.01).astype(np.float32)
+    A = -np.exp(0.5 * rng.randn(D, N)).astype(np.float32)
+    Bm = rng.randn(Bq, L, N).astype(np.float32)
+    Cm = rng.randn(Bq, L, N).astype(np.float32)
+    Dv = rng.randn(D).astype(np.float32)
+    return u, dt, A, Bm, Cm, Dv
+
+
+def _lane(x):
+    """(b, L, ch) numpy -> (L, ch, b) torch"""
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(x, (1, 2, 0))))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_v1_plain_matches_lanemajor_probe(scan_args, reverse):
+    from jax.experimental.pallas import tpu as pltpu
+
+    u, dt, A, Bm, Cm, Dv = scan_args
+    probe = _probe("scan_sweep")
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(probe.scan_lanemajor(
+            *map(jnp.asarray, scan_args), bb=8, tc=4, reverse=reverse))
+    for rows, chunk in zip(TILE_ROWS, TILE_CHUNKS):
+        got = selective_scan_tiled(
+            _lane(u), _lane(dt), torch.from_numpy(A), _lane(Bm), _lane(Cm),
+            torch.from_numpy(Dv), reverse=reverse, rows=rows, chunk=chunk)
+        np.testing.assert_allclose(got.permute(2, 0, 1).numpy(), want,
+                                   **SCAN_TOL)
+
+
+def test_v2_plain_matches_batch_major_probe(scan_args):
+    from jax.experimental.pallas import tpu as pltpu
+
+    probe = _probe("scan_bm_sweep")
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(probe.scan_bm(*map(jnp.asarray, scan_args),
+                                        block_b=8))
+    got = selective_scan_batch_major(*map(torch.from_numpy, scan_args))
+    assert got.shape == (Bq, L, D) and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want, **SCAN_TOL)
+
+
+def _qkv(h, hd, seed):
+    rng = np.random.RandomState(seed)
+    return tuple(rng.randn(4, 9, h, hd).astype(np.float32) for _ in range(3))
+
+
+def _bf16(*arrays):
+    """bf16 tensors, and the same values as float32 numpy arrays."""
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
+    return t, [x.float().numpy() for x in t]
+
+
+@pytest.mark.parametrize("h,hd", HEADS)
+def test_v3_v4_plain_match_jax_reference(h, hd):
+    qkv = _qkv(h, hd, 10 * h + hd)
+    scale = hd ** -0.5
+    want = np.asarray(jax_attention.attention_reference_heads(
+        *map(jnp.asarray, qkv), scale, False))
+    got = heads_attention_outer(*map(torch.from_numpy, qkv), scale)
+    np.testing.assert_allclose(got.numpy(), want, **ATT_TOL)
+
+    lo, lo32 = _bf16(*qkv)
+    want = np.asarray(jax_attention.attention_reference_heads(
+        *map(jnp.asarray, lo32), scale, False))
+    for masked in (False, True):
+        got = heads_attention_mma(*lo, scale, masked=masked)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("h,hd", HEADS)
+def test_v3_v4_plain_match_pallas_kernel_interpret(h, hd):
+    """The shipped Pallas kernel (the probes' G), residual off, batch 4 in
+    blocks of 3."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    qkv = _qkv(h, hd, 20 * h + hd)
+    lo, lo32 = _bf16(*qkv)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_attention.fused_attention_heads(
+            *map(jnp.asarray, qkv), 0.3, 3, False))
+        want_lo = np.asarray(jax_attention.fused_attention_heads(
+            *map(jnp.asarray, lo32), 0.3, 3, False))
+    got = heads_attention_outer(*map(torch.from_numpy, qkv), 0.3)
+    np.testing.assert_allclose(got.numpy(), want, **ATT_TOL)
+    got = heads_attention_mma(*lo, 0.3)
+    np.testing.assert_allclose(got.float().numpy(), want_lo, **BF16_TOL)
+
+
+def _scan_lane(seed, b=5):
+    rng = np.random.RandomState(seed)
+    f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+    return (f(L, D, b), 0.1 * f(L, D, b).abs(), -f(D, N).exp(), f(L, N, b),
+            f(L, N, b), f(D))
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
+    from vit_cnn_tpu_torch.ops.attention import attention_reference_heads
+    from vit_cnn_tpu_torch.ops.selective_scan import selective_scan_reference
+
+    before = dict(_build.launches)
+    lane = _scan_lane(1)
+    torch.testing.assert_close(selective_scan_tiled(*lane, True, 16, 27),
+                               selective_scan_reference(*lane, True),
+                               rtol=0, atol=0)
+    bm = [x.permute(2, 0, 1) if x.dim() == 3 else x for x in lane]
+    torch.testing.assert_close(selective_scan_batch_major(*bm),
+                               selective_scan_batch_major_reference(*bm),
+                               rtol=0, atol=0)
+    q, k, v = map(torch.from_numpy, _qkv(4, 4, 2))
+    want = attention_reference_heads(q, k, v, 0.5)
+    torch.testing.assert_close(heads_attention_outer(q, k, v, 0.5), want,
+                               rtol=0, atol=0)
+    lo = [x.to(torch.bfloat16) for x in (q, k, v)]
+    torch.testing.assert_close(heads_attention_mma(*lo, 0.5),
+                               attention_reference_heads(*lo, 0.5),
+                               rtol=0, atol=0)
+    assert dict(_build.launches) == before
+
+
+def test_inputs_that_require_a_gradient_raise():
+    lane = list(_scan_lane(2))
+    lane[0].requires_grad_()
+    with pytest.raises(ValueError, match="forward only"):
+        selective_scan_tiled(*lane)
+    bm = [x.detach().permute(2, 0, 1) if x.dim() == 3 else x for x in lane]
+    bm[3] = bm[3].clone().requires_grad_()
+    with pytest.raises(ValueError, match="forward only"):
+        selective_scan_batch_major(*bm)
+    q, k, v = map(torch.from_numpy, _qkv(4, 4, 3))
+    with pytest.raises(ValueError, match="forward only"):
+        heads_attention_outer(q, k.requires_grad_(), v, 0.5)
+    lo = [x.detach().to(torch.bfloat16) for x in (q, k, v)]
+    with pytest.raises(ValueError, match="forward only"):
+        heads_attention_mma(lo[0], lo[1], lo[2].requires_grad_(), 0.5)
+
+
+def test_v3_refuses_float32():
+    q, k, v = map(torch.from_numpy, _qkv(4, 4, 4))
+    with pytest.raises(TypeError, match="bfloat16"):
+        heads_attention_mma(q, k, v, 0.5)
+
+
+@pytest.mark.parametrize("fn,n,h,hd,kwargs", [
+    (heads_attention_mma, 513, 4, 4, {}),
+    (heads_attention_mma, 9, 4, 3, {}),                 # hd odd
+    (heads_attention_mma, 9, 2, 18, {}),                # hd > 16
+    (heads_attention_mma, 9, 3, 8, {"masked": True}),   # C not a 16 multiple
+    (heads_attention_mma, 9, 16, 16, {"masked": True}), # C > 128
+    (heads_attention_mma, 512, 16, 16, {}),             # shared memory
+    (heads_attention_outer, 9, 2, 33, {}),              # hd > 32
+    (heads_attention_outer, 9, 32, 16, {}),             # C > 256
+    (heads_attention_outer, 512, 16, 16, {}),           # shared memory
+])
+def test_attention_variants_refuse_shapes_outside_their_limits(fn, n, h, hd,
+                                                               kwargs):
+    q = torch.zeros((1, n, h, hd), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fn(q, q, q, 0.5, **kwargs)
+
+
+def test_scan_variants_refuse_shapes_outside_their_limits():
+    lane = _scan_lane(5)
+    with pytest.raises(ValueError, match="V1 instances"):
+        selective_scan_tiled(*lane, rows=32)
+    with pytest.raises(ValueError, match="V1 instances"):
+        selective_scan_tiled(*lane, chunk=4)
+    b = 3
+    u = torch.zeros((b, L, D))
+    wide_state = torch.zeros((b, L, 17))
+    with pytest.raises(ValueError, match="n <= 16"):
+        selective_scan_batch_major(u, u, torch.zeros((D, 17)), wide_state,
+                                   wide_state, torch.zeros(D))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        selective_scan_batch_major(u, u, torch.zeros((D, N)),
+                                   torch.zeros((b, L + 1, N)),
+                                   torch.zeros((b, L + 1, N)), torch.zeros(D))

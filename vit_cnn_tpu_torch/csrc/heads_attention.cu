@@ -41,8 +41,10 @@
 //   each summing every (32 / hd)-th key for its channel, then the groups
 //   reduce with shuffles. The output row is scaled by 1 / sum, gets the
 //   residual, and is stored once in the input dtype.
-// Not yet: tensor cores for Q.K^T at hd = 16, several query rows per warp
-// to reuse each K row read from shared memory.
+// Not here: tensor cores for Q.K^T and P.V, and several query rows per
+// thread to reuse each K row read from shared memory. Both are measured
+// beside K8 as the variants V3 and V4 (csrc/heads_variants.cu,
+// tools/heads_attn_variants.py; PERF.md has the times).
 #include "common.cuh"
 
 #include <math.h>

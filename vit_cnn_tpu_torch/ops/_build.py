@@ -60,6 +60,13 @@ _SIGNATURES = {
     "vct_selective_scan_bwd": [_I] + [_P] * 14 + [_I] * 6 + [_P],
     "vct_dir_conv_silu_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_P],
     "vct_inv_perm_weighted_sum_bwd": [_I] + [_P] * 11 + [_I] * 5 + [_P],
+    "vct_selective_scan_tiled": [_I, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vct_selective_scan_batch_major": [_I, _P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _P],
+    "vct_heads_attention_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "vct_heads_attention_outer": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                  _P],
 }
 #: workspace sizes (float32 elements) of the backward entry points
 _WORKSPACE_SIGNATURES = {
@@ -194,6 +201,14 @@ def check_inputs(*tensors: torch.Tensor) -> None:
                 dev, t.device))
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
+
+
+def forward_only(what: str, *tensors: torch.Tensor) -> None:
+    """Raise for an input that requires a gradient: the wrapper has no
+    backward (its output would silently carry no ``grad_fn``)."""
+    if any(t.requires_grad for t in tensors):
+        raise ValueError("{} are forward only: an input requires a "
+                         "gradient".format(what))
 
 
 def dtype_code(t: torch.Tensor) -> int:
