@@ -54,7 +54,8 @@ the result lines:
    variant kernel launched.
 
 Phase 2 also holds K8 and K9 (float32 and bf16, at every zoo band shape,
-a ragged batch and one token) and times them beside their plain versions,
+a ragged batch, one token, 17 tokens, odd hd and the 512-token limit) and
+times both dtypes beside their plain versions,
 ``scaled_dot_product_attention`` (K8 without the residual; K4 too) and,
 for K9, the composition of the plain group LayerNorm with K8.
 
@@ -191,6 +192,14 @@ def _record(rows, key, err, dtype_name, ms=None, plain_ms=None,
         row["ms"], row["plain_ms"] = ms, plain_ms
         row["bound_ms"], row["bound_by"] = bound
         row.update(timed)
+
+
+def _timed(rows, key, shape, dtype_name, **fields):
+    """Keep one timed shape and dtype of a kernel under its row's
+    ``timed``."""
+    _record(rows, key, 0.0, dtype_name)          # the row exists
+    rows[key].setdefault("timed", {}).setdefault(shape, {})[dtype_name] = \
+        fields
 
 
 def phase_device():
@@ -359,9 +368,13 @@ def _heads_qkv(g, B, n, h, hd, dtype):
 
 def phase_heads_kernels(rows):
     """K8 and K9 against their plain versions at every zoo band shape, a
-    ragged batch and one token; timed at the MHST band shape (and K8 at
-    SpectralFormer's) beside the plain versions, SDPA and, for K9, the
-    plain group LayerNorm followed by K8."""
+    ragged batch, one token, 17 tokens (a last key tile that is mostly
+    padding), odd hd (5) and the 512-token limit at C = 256 (in bf16 the
+    heads split over blocks); timed in both dtypes at the ViT and
+    SpectralFormer bands (K8) and MHST's pooled band (K9) beside the plain
+    versions, SDPA and, for K9, the plain group LayerNorm followed by K8.
+    The kernel table keeps the bf16 times (the serving dtype) and, under
+    ``timed``, every timed shape and dtype."""
     import torch
     import torch.nn.functional as F
 
@@ -372,96 +385,117 @@ def phase_heads_kernels(rows):
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     record = functools.partial(_record, rows)
     mhst_b, sf_b = ZOO_BANDS["MHST"], ZOO_BANDS["SpectralFormer"]
-    k8_shapes = [(mhst_b, 65), (sf_b, 146),
-                 (ZOO_BANDS["S2EFT"], 145), (RAGGED, 65), (RAGGED, 1)]
+    bands = {mhst_b: "ViT band", sf_b: "SpectralFormer band"}
+    # (B, n, h, hd); the residual on and off except at the two long bands
+    k8_cases = [(mhst_b, 65, 4, 16), (sf_b, 146, 4, 16),
+                (ZOO_BANDS["S2EFT"], 145, 4, 16), (RAGGED, 65, 4, 16),
+                (RAGGED, 1, 4, 16), (RAGGED, 17, 4, 16), (7, 65, 4, 5),
+                (2, 512, 8, 32)]
+    k9_cases = [(mhst_b, 65, 16, 4), (RAGGED, 65, 16, 4), (RAGGED, 1, 16, 4),
+                (RAGGED, 17, 16, 4), (7, 65, 4, 5), (2, 512, 1, 32)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        timed = dtype == torch.bfloat16
-        for B, n in k8_shapes:
-            for res in ((False, True) if n == 65 else (False,)):
-                q, k, v = _heads_qkv(g, B, n, 4, 16, dtype)
-                got = attention.fused_attention_heads(q, k, v, 0.25, res)
-                want = attention.attention_reference_heads(q, k, v, 0.25,
+        for B, n, h, hd in k8_cases:
+            for res in ((False,) if n in (145, 146) else (False, True)):
+                q, k, v = _heads_qkv(g, B, n, h, hd, dtype)
+                scale = hd ** -0.5
+                got = attention.fused_attention_heads(q, k, v, scale, res)
+                want = attention.attention_reference_heads(q, k, v, scale,
                                                            res)
-                err = _compare("K8 heads attention B={} n={} 4x16{}".format(
-                    B, n, " +q" if res else ""), got, want, dn)
-                t = p = bound = None
+                err = _compare("K8 heads attention B={} n={} {}x{}{}".format(
+                    B, n, h, hd, " +q" if res else ""), got, want, dn)
+                t = p = bnd = None
                 extra = {}
-                if timed and not res and B in (mhst_b, sf_b):
-                    ms = _median_ms(lambda: attention.fused_attention_heads(
-                        q, k, v, 0.25))
-                    plain = _median_ms(
+                if not res and B in bands:
+                    t = _median_ms(lambda: attention.fused_attention_heads(
+                        q, k, v, scale))
+                    p = _median_ms(
                         lambda: attention.attention_reference_heads(
-                            q, k, v, 0.25), reps=3)
+                            q, k, v, scale), reps=3)
                     lib = _median_ms(lambda: F.scaled_dot_product_attention(
                         q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), scale=0.25))
-                    bnd = _bound([q, k, v, got], dn, exps=B * 4 * n * n,
-                                 flops=4 * B * 4 * n * n * 16)
-                    print("    n={}: kernel {:.3f} ms, plain {:.3f}, sdpa "
-                          "{:.3f}, bound {:.3f} ({})".format(
-                              n, ms, plain, lib, *bnd), flush=True)
-                    if B == mhst_b:
-                        t, p, bound, extra = ms, plain, bnd, {
-                            "library_ms": lib}
-                    else:          # SpectralFormer's band, kept beside
-                        rows["fused_attention_heads"]["spectralformer"] = {
-                            "ms": ms, "plain_ms": plain, "library_ms": lib,
-                            "bound_ms": bnd[0], "bound_by": bnd[1]}
-                record("fused_attention_heads", err, dn, t, p, bound,
-                       **extra)
+                        v.transpose(1, 2), scale=scale))
+                    bnd = _bound([q, k, v, got], dn, exps=B * h * n * n,
+                                 flops=4 * B * h * n * n * hd)
+                    print("    {} n={} {}: kernel {:.3f} ms, plain {:.3f}, "
+                          "sdpa {:.3f}, bound {:.3f} ({}); K8 {} / SDPA "
+                          "{:.3f}".format(bands[B], n, dn, t, p, lib, *bnd,
+                                          dn, t / lib), flush=True)
+                    _timed(rows, "fused_attention_heads",
+                           "{} (B={}, n={}, {}x{})".format(bands[B], B, n, h,
+                                                           hd), dn,
+                           ms=t, plain_ms=p, library_ms=lib,
+                           bound_ms=bnd[0], bound_by=bnd[1])
+                    extra = {"library_ms": lib}
+                    if dtype != torch.bfloat16 or B != mhst_b:
+                        t = p = bnd = None          # the row keeps bf16's
+                        extra = {}
+                record("fused_attention_heads", err, dn, t, p, bnd, **extra)
                 del q, k, v, got, want
-        for B, n in ((mhst_b, 65), (RAGGED, 65), (RAGGED, 1)):
-            q, k, v = (torch.randn((B, n, 64), generator=g, device="cuda")
+        for B, n, h, hd in k9_cases:
+            c = h * hd
+            q, k, v = (torch.randn((B, n, c), generator=g, device="cuda")
                        .to(dtype) for _ in range(3))
-            lns = [((1 + 0.2 * torch.randn(4, generator=g, device="cuda"))
-                    .to(dtype), (0.1 * torch.randn(4, generator=g,
+            lns = [((1 + 0.2 * torch.randn(hd, generator=g, device="cuda"))
+                    .to(dtype), (0.1 * torch.randn(hd, generator=g,
                                                    device="cuda")).to(dtype))
                    for _ in range(3)]
-            got = attention.pooled_heads_attention_auto(q, k, v, *lns, 16, 0.5)
+            scale = hd ** -0.5
+            got = attention.pooled_heads_attention_auto(q, k, v, *lns, h,
+                                                        scale)
             # float32: against the plain version in float64 (K9 takes its
-            # LN statistics in float64; in float32 the fast variance of a
-            # group with a large mean cancels, the plain version's too)
+            # LN statistics in float64 there; in float32 the fast variance
+            # of a group with a large mean cancels, the plain version's too)
             wide = (lambda x: x.double()) if dtype == torch.float32 else (
                 lambda x: x)
             want = attention.pooled_attention_reference(
                 wide(q), wide(k), wide(v),
-                *[tuple(map(wide, ln)) for ln in lns], 16, 0.5)
-            err = _compare("K9 pooled attention B={} n={} 16x4".format(B, n),
-                           got, want, dn)
-            t = p = bound = None
+                *[tuple(map(wide, ln)) for ln in lns], h, scale)
+            err = _compare("K9 pooled attention B={} n={} {}x{}".format(
+                B, n, h, hd), got, want, dn)
+            t = p = bnd = None
             extra = {}
-            if dtype == torch.float32 and B == mhst_b:
-                # the float32 plain version's own distance from float64
-                plain32 = attention.pooled_attention_reference(
-                    q, k, v, *lns, 16, 0.5)
-                spread = float((plain32.double() - want).abs().max())
-                print("    plain float32 vs float64: max|diff| {:.3e}".format(
-                    spread), flush=True)
-                del plain32
-            if timed and B == mhst_b:
+            if B == mhst_b:
+                if dtype == torch.float32:
+                    # the float32 plain version's own distance from float64
+                    plain32 = attention.pooled_attention_reference(
+                        q, k, v, *lns, h, scale)
+                    spread = float((plain32.double() - want).abs().max())
+                    print("    plain float32 vs float64: max|diff| {:.3e}"
+                          .format(spread), flush=True)
+                    _record(rows, "pooled_heads_attention", 0.0, dn)
+                    rows["pooled_heads_attention"]["plain_f32_vs_f64"] = \
+                        spread
+                    del plain32
                 t = _median_ms(lambda: attention.pooled_heads_attention_auto(
-                    q, k, v, *lns, 16, 0.5))
+                    q, k, v, *lns, h, scale))
                 p = _median_ms(lambda: attention.pooled_attention_reference(
-                    q, k, v, *lns, 16, 0.5), reps=3)
+                    q, k, v, *lns, h, scale), reps=3)
 
                 def composition():
                     heads = lambda x, ln: attention.ln_groups_reference(
-                        x, *ln, 4).view(B, n, 16, 4)
+                        x, *ln, hd).view(B, n, h, hd)
                     return attention.fused_attention_heads(
                         heads(q, lns[0]), heads(k, lns[1]), heads(v, lns[2]),
-                        0.5, True)
+                        scale, True)
 
-                extra["composition_ms"] = _median_ms(composition)
-                bound = _bound([q, k, v, *[x for ln in lns for x in ln], got],
-                               dn, exps=B * 16 * n * n,
-                               flops=4 * B * 16 * n * n * 4)
-                print("    kernel {:.3f} ms, plain {:.3f}, group LN + K8 "
-                      "{:.3f}, bound {:.3f} ({})".format(
-                          t, p, extra["composition_ms"], *bound), flush=True)
-            record("pooled_heads_attention", err, dn, t, p, bound, **extra)
-            if dtype == torch.float32 and B == mhst_b:
-                rows["pooled_heads_attention"]["plain_f32_vs_f64"] = spread
+                comp = _median_ms(composition)
+                bnd = _bound([q, k, v, *[x for ln in lns for x in ln], got],
+                             dn, exps=B * h * n * n,
+                             flops=4 * B * h * n * n * hd)
+                print("    MHST pooled band {}: kernel {:.3f} ms, plain "
+                      "{:.3f}, group LN + K8 {:.3f}, bound {:.3f} ({})"
+                      .format(dn, t, p, comp, *bnd), flush=True)
+                _timed(rows, "pooled_heads_attention",
+                       "MHST pooled band (B={}, n={}, {}x{})".format(
+                           B, n, h, hd), dn, ms=t, plain_ms=p,
+                       composition_ms=comp, bound_ms=bnd[0],
+                       bound_by=bnd[1])
+                extra = {"composition_ms": comp}
+                if dtype != torch.bfloat16:
+                    t = p = bnd = None
+                    extra = {}
+            record("pooled_heads_attention", err, dn, t, p, bnd, **extra)
             del q, k, v, got, want
     torch.cuda.synchronize()
 

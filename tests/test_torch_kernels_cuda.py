@@ -7,9 +7,11 @@ than one grid holds. The adjoint kernels (K5-K7) are held against
 autograd through the plain forwards, every autograd Function's gradients
 against autograd through its plain version, and the summed gradients
 must be bitwise equal from one launch to the next. The head-last
-attention kernels (K8, K9) are held at one token, the zoo's token counts,
-the 512-token limit, head widths 4 / 12 / 16 / 32, ragged batches and
-the strided q / k / v views of a fused projection. The tuning sweep's
+attention kernels (K8, K9) are held at one token, 17 tokens (a last key
+tile that is mostly padding), the zoo's token counts, the 512-token limit
+(in bf16 with the heads split over blocks), head widths 4 / 5 / 12 / 16 /
+24 / 32, ragged batches and the strided q / k / v views of a fused
+projection; K8's bf16 instance also against its float32 instance. The tuning sweep's
 variants: every instance of K1's tile and chunk grid (V1) against the
 plain scan and bit for bit against K1, the batch-major scan (V2) at
 ragged batches, and the tensor-core (V3, bf16) and outer-product (V4)
@@ -310,7 +312,9 @@ def test_summed_gradients_are_bitwise_repeatable(gen):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,n,h,hd,residual", [
     (1001, 65, 4, 16, True), (3, 146, 4, 16, False), (5, 1, 4, 16, True),
-    (2, 512, 2, 32, True), (9, 33, 3, 12, False), (70000, 5, 16, 4, True)])
+    (2, 512, 2, 32, True), (9, 33, 3, 12, False), (70000, 5, 16, 4, True),
+    (7, 65, 4, 5, True), (11, 17, 4, 16, True), (6, 17, 16, 4, False),
+    (2, 512, 8, 32, True), (4, 100, 3, 24, True)])
 def test_heads_attention(gen, dtype, B, n, h, hd, residual):
     qkv = _randn(gen, B, n, 3 * h * hd).to(dtype)
     q, k, v = (t.view(B, n, h, hd) for t in qkv.chunk(3, dim=-1))
@@ -324,7 +328,8 @@ def test_heads_attention(gen, dtype, B, n, h, hd, residual):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,n,h,hd,residual", [
     (1001, 65, 16, 4, True), (3, 1, 16, 4, True), (4, 65, 5, 8, False),
-    (2, 160, 4, 16, True)])
+    (2, 160, 4, 16, True), (2, 512, 1, 32, True), (5, 17, 16, 4, True),
+    (7, 65, 4, 5, True), (3, 40, 2, 24, False)])
 def test_pooled_heads_attention(gen, dtype, B, n, h, hd, residual):
     q, k, v = (_randn(gen, B, n, h * hd).to(dtype) for _ in range(3))
     lns = [((1 + 0.2 * _randn(gen, hd)).to(dtype),
@@ -341,6 +346,37 @@ def test_pooled_heads_attention(gen, dtype, B, n, h, hd, residual):
         wide(q), wide(k), wide(v), *[tuple(map(wide, ln)) for ln in lns], h,
         hd ** -0.5, residual)
     _close(got, want.to(dtype), dtype)
+
+
+@pytest.mark.parametrize("B,n,h,hd", [(3, 512, 8, 32), (2, 512, 64, 4)])
+def test_pooled_bf16_takes_head_groups(gen, B, n, h, hd):
+    """In bf16 K9 splits a batch row's heads over blocks where one block
+    cannot stage them all (the float32 instance cannot, and raises)."""
+    q, k, v = (_randn(gen, B, n, h * hd) for _ in range(3))
+    lns = [p for _ in range(3) for p in (1 + 0.2 * _randn(gen, hd),
+                                         0.1 * _randn(gen, hd))]
+    with pytest.raises(ValueError, match="shared memory"):
+        pooled_heads_attention(q, k, v, *lns, h, hd ** -0.5)
+    q, k, v = (x.bfloat16() for x in (q, k, v))
+    got = pooled_heads_attention(q, k, v, *lns, h, hd ** -0.5)
+    want = pooled_attention_reference(q, k, v, *zip(lns[::2], lns[1::2]), h,
+                                      hd ** -0.5)
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,n,h,hd,residual", [
+    (257, 65, 4, 16, True), (33, 146, 4, 16, False), (65, 65, 16, 4, True),
+    (9, 17, 4, 5, True)])
+def test_heads_bf16_kernel_against_float32_kernel(gen, B, n, h, hd,
+                                                  residual):
+    """K8's bf16 instance (tensor cores, P rounded to bf16) against its
+    float32 instance on the same values cast up: within bf16's limit."""
+    qkv = _randn(gen, B, n, 3 * h * hd).bfloat16()
+    q, k, v = (t.view(B, n, h, hd) for t in qkv.chunk(3, dim=-1))
+    got = fused_attention_heads(q, k, v, hd ** -0.5, residual)
+    want = fused_attention_heads(q.float(), k.float(), v.float(), hd ** -0.5,
+                                 residual)
+    torch.testing.assert_close(got.float(), want, **TOL[torch.bfloat16])
 
 
 def test_heads_functions_carry_gradients(gen):
@@ -379,10 +415,15 @@ def test_heads_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="heads contiguous"):
         t = q.transpose(2, 3).contiguous().transpose(2, 3)
         fused_attention_heads(t, t, t, 0.25)
+    # K9 in float32 stages all heads of a row in one block; in bf16 it
+    # splits them into groups that fit (ops/attention.py _heads_group)
     x = _randn(gen, 2, 512, 256)
     ln = _randn(gen, 4)
     with pytest.raises(ValueError, match="shared memory"):
         pooled_heads_attention(x, x, x, *(ln,) * 6, 64, 0.5)
+    x = x.bfloat16()
+    assert pooled_heads_attention(x, x, x, *(ln,) * 6, 64, 0.5).shape == \
+        x.shape
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -17,7 +17,8 @@
 //     P_h . (V with the other heads zeroed) summed over the heads into one
 //     (n, C) accumulator, as `kern_g` does. It does C / hd times the
 //     per-head form's Q.K^T work.
-//   P is rounded to bf16 before P.V, as F and G round it.
+//   P is rounded to bf16 before P.V, as F and G round it. The MMA and
+//   online-softmax helpers are csrc/mma.cuh's, shared with K8 and K9.
 // - V4 (`vct_heads_attention_outer`), the vector-unit formulations, on the
 //   CUDA cores in float32: H's scores as hd rank-1 updates (a q column
 //   times a k row per channel), C's broadcast-multiply-sum and E's
@@ -53,6 +54,7 @@
 //   This is the "several query rows per thread" that K8 leaves for later:
 //   each K and V row read from shared memory serves R rows.
 #include "common.cuh"
+#include "mma.cuh"
 
 #include <math.h>
 
@@ -79,84 +81,13 @@ size_t outer_smem(int n, int C) {
   return sizeof(float) * 2 * static_cast<size_t>(n) * C;
 }
 
-// D += A . B for one m16n8k16 tile: A 16 x 16 bf16 (row), B 16 x 8 bf16
-// (col), D 16 x 8 float32, in the PTX ISA's fragment layouts
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// two neighbouring bf16 values (the first at an even index)
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// One 16-key tile of the online softmax for the two rows (g, g + 8) a lane
-// holds: s[half][e] are the scores of keys k0 + 8 half + 2 t + (e & 1) for
-// row g + 8 (e >> 1). Masks padded keys, updates the maxima m and the
-// lane's partial sums l, returns the factor each row's output sums must be
-// scaled by in alpha, and P as the A fragment of the P.V product.
-__device__ __forceinline__ void softmax_tile(float (&s)[2][4], int k0, int n,
-                                             float scale, float (&m)[2],
-                                             float (&l)[2], float (&alpha)[2],
-                                             uint32_t (&pa)[4]) {
-  const int t = threadIdx.x & 3;
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int half = 0; half < 2; ++half)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = k0 + 8 * half + 2 * t + (e & 1);
-      s[half][e] = key < n ? s[half][e] * scale : -INFINITY;
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[half][e]);
-    }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = quad_max(mx[r]);             // finite: every tile has a key
-    alpha[r] = __expf(m[r] - mx[r]);     // 0 on the first tile (m = -inf)
-    m[r] = mx[r];
-    l[r] *= alpha[r];
-  }
-  float p[2][4];
-#pragma unroll
-  for (int half = 0; half < 2; ++half)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      p[half][e] = __expf(s[half][e] - m[e >> 1]);
-      l[e >> 1] += p[half][e];
-    }
-  pa[0] = pack(p[0][0], p[0][1]);
-  pa[1] = pack(p[0][2], p[0][3]);
-  pa[2] = pack(p[1][0], p[1][1]);
-  pa[3] = pack(p[1][2], p[1][3]);
-}
-
 template <bool kMasked>
 __global__ void __launch_bounds__(32 * kMmaWarps)
 heads_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, int n, int h, int hd,
-                 float scale) {
+                 float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int C = h * hd, cs = C + 8;
   const int np = pad16(n), vs = np + 8;
@@ -173,8 +104,8 @@ heads_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat162 vv = __floats2bfloat162_rn(0.f, 0.f);
     if (j < n) {
       const long long src = row0 + static_cast<long long>(j) * C + c;
-      qv = pair(q + src);
-      kv = pair(k + src);
+      qv = vct::pair(q + src);
+      kv = vct::pair(k + src);
       vv = *reinterpret_cast<const __nv_bfloat162*>(v + src);
     }
     *reinterpret_cast<uint32_t*>(sQ + j * cs + c) = qv;
@@ -194,10 +125,10 @@ heads_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const int c0 = head * hd;
       const bool lo = 2 * t < hd, hi = 8 + 2 * t < hd;
       uint32_t qa[4];
-      qa[0] = lo ? pair(sQ + (q0 + g) * cs + c0 + 2 * t) : 0u;
-      qa[1] = lo ? pair(sQ + (q0 + g + 8) * cs + c0 + 2 * t) : 0u;
-      qa[2] = hi ? pair(sQ + (q0 + g) * cs + c0 + 8 + 2 * t) : 0u;
-      qa[3] = hi ? pair(sQ + (q0 + g + 8) * cs + c0 + 8 + 2 * t) : 0u;
+      qa[0] = lo ? vct::pair(sQ + (q0 + g) * cs + c0 + 2 * t) : 0u;
+      qa[1] = lo ? vct::pair(sQ + (q0 + g + 8) * cs + c0 + 2 * t) : 0u;
+      qa[2] = hi ? vct::pair(sQ + (q0 + g) * cs + c0 + 8 + 2 * t) : 0u;
+      qa[3] = hi ? vct::pair(sQ + (q0 + g + 8) * cs + c0 + 8 + 2 * t) : 0u;
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
       float acc[2][4] = {};
       for (int kt = 0; kt < tiles; ++kt) {
@@ -206,12 +137,13 @@ heads_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const __nv_bfloat16* kr = sK + (k0 + 8 * half + g) * cs + c0;
-          mma(s[half], qa, lo ? pair(kr + 2 * t) : 0u,
-              hi ? pair(kr + 8 + 2 * t) : 0u);
+          vct::mma(s[half], qa, lo ? vct::pair(kr + 2 * t) : 0u,
+                   hi ? vct::pair(kr + 8 + 2 * t) : 0u);
         }
         float alpha[2];
         uint32_t pa[4];
-        softmax_tile(s, k0, n, scale, m, l, alpha, pa);
+        vct::softmax_tile(s, k0, n, q0 + 8 < n, scale_log2, m, l, alpha,
+                          pa);
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
           if (8 * nt >= hd) continue;
@@ -219,11 +151,12 @@ heads_mma_kernel(const __nv_bfloat16* __restrict__ q,
           for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e >> 1];
           const int ch = 8 * nt + g;
           const __nv_bfloat16* vr = sVt + (c0 + ch) * vs + k0;
-          mma(acc[nt], pa, ch < hd ? pair(vr + 2 * t) : 0u,
-              ch < hd ? pair(vr + 8 + 2 * t) : 0u);
+          vct::mma(acc[nt], pa, ch < hd ? vct::pair(vr + 2 * t) : 0u,
+                   ch < hd ? vct::pair(vr + 8 + 2 * t) : 0u);
         }
       }
-      const float inv[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
+      const float inv[2] = {1.f / vct::quad_sum(l[0]),
+                            1.f / vct::quad_sum(l[1])};
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
         const int col = 8 * nt + 2 * t;
@@ -234,7 +167,8 @@ heads_mma_kernel(const __nv_bfloat16* __restrict__ q,
           if (row < n)
             *reinterpret_cast<uint32_t*>(
                 o + row0 + static_cast<long long>(row) * C + c0 + col) =
-                pack(acc[nt][2 * r] * inv[r], acc[nt][2 * r + 1] * inv[r]);
+                vct::pack(acc[nt][2 * r] * inv[r],
+                          acc[nt][2 * r + 1] * inv[r]);
         }
       }
     }
@@ -252,10 +186,10 @@ heads_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int ks = 0; ks < kSteps; ++ks) {
       const bool on = ks < steps;
       const int c = 16 * ks + 2 * t;
-      qa[ks][0] = on ? pair(sQ + (q0 + g) * cs + c) : 0u;
-      qa[ks][1] = on ? pair(sQ + (q0 + g + 8) * cs + c) : 0u;
-      qa[ks][2] = on ? pair(sQ + (q0 + g) * cs + c + 8) : 0u;
-      qa[ks][3] = on ? pair(sQ + (q0 + g + 8) * cs + c + 8) : 0u;
+      qa[ks][0] = on ? vct::pair(sQ + (q0 + g) * cs + c) : 0u;
+      qa[ks][1] = on ? vct::pair(sQ + (q0 + g + 8) * cs + c) : 0u;
+      qa[ks][2] = on ? vct::pair(sQ + (q0 + g) * cs + c + 8) : 0u;
+      qa[ks][3] = on ? vct::pair(sQ + (q0 + g + 8) * cs + c + 8) : 0u;
     }
     float acc[kTiles][4] = {};
     for (int head = 0; head < h; ++head) {
@@ -273,13 +207,14 @@ heads_mma_kernel(const __nv_bfloat16* __restrict__ q,
           for (int ks = 0; ks < kSteps; ++ks) {
             if (ks >= steps) continue;
             const int c = 16 * ks + 2 * t;
-            mma(s[half], qa[ks], mine(c) ? pair(kr + c) : 0u,
-                mine(c + 8) ? pair(kr + c + 8) : 0u);
+            vct::mma(s[half], qa[ks], mine(c) ? vct::pair(kr + c) : 0u,
+                     mine(c + 8) ? vct::pair(kr + c + 8) : 0u);
           }
         }
         float alpha[2];
         uint32_t pa[4];
-        softmax_tile(s, k0, n, scale, m, l, alpha, pa);
+        vct::softmax_tile(s, k0, n, q0 + 8 < n, scale_log2, m, l, alpha,
+                          pa);
 #pragma unroll
         for (int nt = 0; nt < kTiles; ++nt) {
           if (nt >= ntiles) continue;
@@ -288,11 +223,12 @@ heads_mma_kernel(const __nv_bfloat16* __restrict__ q,
             for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e >> 1];
           const int ch = 8 * nt + g;
           const __nv_bfloat16* vr = sVt + ch * vs + k0;
-          mma(acc[nt], pa, mine(ch) ? pair(vr + 2 * t) : 0u,
-              mine(ch) ? pair(vr + 8 + 2 * t) : 0u);
+          vct::mma(acc[nt], pa, mine(ch) ? vct::pair(vr + 2 * t) : 0u,
+                   mine(ch) ? vct::pair(vr + 8 + 2 * t) : 0u);
         }
       }
-      const float inv[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
+      const float inv[2] = {1.f / vct::quad_sum(l[0]),
+                            1.f / vct::quad_sum(l[1])};
 #pragma unroll
       for (int nt = 0; nt < kTiles; ++nt)
         if (nt < ntiles && mine(8 * nt + 2 * t))
@@ -308,7 +244,7 @@ heads_mma_kernel(const __nv_bfloat16* __restrict__ q,
         if (row < n)
           *reinterpret_cast<uint32_t*>(
               o + row0 + static_cast<long long>(row) * C + 8 * nt + 2 * t) =
-              pack(acc[nt][2 * r], acc[nt][2 * r + 1]);
+              vct::pack(acc[nt][2 * r], acc[nt][2 * r + 1]);
       }
     }
   }
@@ -418,7 +354,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      n, h, hd, scale);
+      n, h, hd, scale * vct::kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -54,9 +54,9 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _I, _P],
     "vct_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vct_heads_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F,
-                            _I, _P],
+                            _I, _I, _P],
     "vct_pooled_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                             _P],
+                             _I, _P],
     "vct_selective_scan_bwd": [_I] + [_P] * 14 + [_I] * 6 + [_P],
     "vct_dir_conv_silu_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_P],
     "vct_inv_perm_weighted_sum_bwd": [_I] + [_P] * 11 + [_I] * 5 + [_P],

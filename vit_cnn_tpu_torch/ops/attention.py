@@ -22,7 +22,10 @@ Head-last attention over many small heads (the transformer zoo):
 * :func:`fused_attention_heads` (``_auto``: the same; the JAX package's
   TPU gate and VMEM block choice have no counterpart here) — kernel K8
   (``csrc/heads_attention.cu``, the counterpart of ``_make_heads_kernel``)
-  for CUDA tensors, the plain version for CPU tensors.
+  for CUDA tensors, the plain version for CPU tensors. In bf16 K8 runs on
+  the tensor cores with P rounded to bf16 before P.V, as the TPU kernel
+  rounds it; in float32 on the CUDA cores with a float32 P. Each block
+  takes one batch row and a group of heads (:func:`_heads_group`).
 * :func:`ln_groups_reference` — flax LayerNorm over each hd-sized channel
   group of (B, n, c): float32 statistics, fast variance, eps 1e-5, (hd,)
   scale and bias shared by the groups.
@@ -33,11 +36,13 @@ Head-last attention over many small heads (the transformer zoo):
   as the JAX one does) — kernel K9 (``_make_pooled_kernel``'s
   counterpart, the LN as a prologue of K8's attention) for CUDA tensors.
   On the TPU that kernel is gated off because the TPU compiler
-  miscompiled it; on the card it is the path. K9 takes the LN statistics
-  in float64: in float32 the fast variance cancels for a group whose mean
+  miscompiled it; on the card it is the path. In float32 K9 takes the LN
+  statistics in float64: the fast variance cancels for a group whose mean
   is large beside its spread, and any two float32 summation orders then
   differ by ~1e-3 in the normalised values (the plain version too, against
-  the exact value), so K9 is held to the plain version run in float64.
+  the exact value), so K9 is held to the plain version run in float64. In
+  bf16 it takes them in float32, as the TPU kernel and the plain version
+  do: the values are rounded to bf16 (a relative step of 2^-8) right after.
 
 The backward of K8 and K9 differentiates the plain formula, as the JAX
 package's ``_fah_bwd`` and ``_pha_bwd`` do.
@@ -161,31 +166,55 @@ def pooled_attention_reference(q, k, v, ln_q, ln_k, ln_v, h: int,
     return o.reshape(b, n, c)
 
 
-def _heads_smem(n: int, heads: int, hd: int) -> int:
-    """Shared memory of one K8 (heads = 1) or K9 (all heads) block: q, k
-    and v of its heads in float32 rows padded to an odd width, and one
-    row of scores per warp."""
+def _heads_smem(n: int, heads: int, hd: int, dtype=torch.float32) -> int:
+    """Shared memory of one K8 or K9 block of ``heads`` heads (the
+    ``smem_bytes`` / ``smem_bf16`` of csrc/heads_attention.cu). float32:
+    q, k and v in float32 rows padded to an odd width, and one row of
+    scores per warp. bf16: q, k and v as bf16 token rows of the block's
+    heads, each head padded to a multiple of 8 channels, the row to an odd
+    number of 8-channel units, and n to a multiple of 16."""
+    if dtype == torch.bfloat16:
+        width = heads * -(-hd // 8) * 8
+        row = width if (width // 8) % 2 else width + 8
+        return 2 * 3 * (-(-n // 16) * 16) * row
     return 4 * (3 * heads * n * (hd | 1) + HEADS_WARPS * n)
 
 
-def _check_heads_shape(n, h, hd, block_heads):
+def _check_heads_shape(n, h, hd, block_heads, dtype=torch.float32):
     if not (1 <= n <= HEADS_MAX_N and 1 <= hd <= HEADS_MAX_HD
             and 1 <= h * hd <= HEADS_MAX_C):
         raise ValueError(
             "K8 / K9 take n <= {}, hd <= {} and h * hd <= {}; got n={}, "
             "h={}, hd={}".format(HEADS_MAX_N, HEADS_MAX_HD, HEADS_MAX_C, n,
                                  h, hd))
-    if _heads_smem(n, block_heads, hd) > SMEM_LIMIT:
+    smem = _heads_smem(n, block_heads, hd, dtype)
+    if smem > SMEM_LIMIT:
         raise ValueError("n={}, h={}, hd={} needs {} bytes of shared memory "
                          "per block, over the card's {}".format(
-                             n, block_heads, hd,
-                             _heads_smem(n, block_heads, hd), SMEM_LIMIT))
+                             n, block_heads, hd, smem, SMEM_LIMIT))
 
 
-def _heads_kernel(q, k, v, scale, residual):
-    """K8 for CUDA tensors. q, k and v may be strided views (the split of
-    a fused qkv projection): each needs unit channel stride, head stride
-    hd, and the same batch and token strides as the others."""
+def _heads_group(n: int, h: int, hd: int, dtype, pooled: bool) -> int:
+    """Heads per block of K8 (``pooled`` False) or K9, after checking the
+    shape. float32: one for K8 and all h for K9 (their layouts are fixed).
+    bf16: the most heads whose staging fits in shared memory, spread evenly
+    over the fewest blocks per batch row; one head always fits."""
+    if dtype != torch.bfloat16:
+        group = h if pooled else 1
+    else:
+        _check_heads_shape(n, h, hd, 1, dtype)
+        most = next(g for g in range(h, 0, -1)
+                    if _heads_smem(n, g, hd, dtype) <= SMEM_LIMIT)
+        group = -(-h // -(-h // most))
+    _check_heads_shape(n, h, hd, group, dtype)
+    return group
+
+
+def _heads_kernel(q, k, v, scale, residual, group):
+    """K8 for CUDA tensors, ``group`` heads per block. q, k and v may be
+    strided views (the split of a fused qkv projection): each needs unit
+    channel stride, head stride hd, and the same batch and token strides
+    as the others."""
     b, n, h, hd = q.shape
     for t in (k, v):
         if t.device != q.device:
@@ -203,7 +232,7 @@ def _heads_kernel(q, k, v, scale, residual):
         code = _build.lib().vct_heads_attention(
             _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), b, n, h, hd, q.stride(0), q.stride(1),
-            float(scale), int(residual), _build.stream_of(q))
+            float(scale), int(residual), group, _build.stream_of(q))
     _build.check("fused_attention_heads", code)
     _build.launches["fused_attention_heads"] += 1
     return o
@@ -213,17 +242,17 @@ class _HeadsAttention(torch.autograd.Function):
     """Forward K8; backward recomputes the plain formula (``_fah_bwd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, residual):
+    def forward(ctx, q, k, v, scale, residual, group):
         ctx.scale, ctx.residual = scale, residual
         ctx.save_for_backward(q, k, v)
-        return _heads_kernel(q, k, v, scale, residual)
+        return _heads_kernel(q, k, v, scale, residual, group)
 
     @staticmethod
     def backward(ctx, g):
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
             o = attention_reference_heads(*leaves, ctx.scale, ctx.residual)
-            return (*torch.autograd.grad(o, leaves, g), None, None)
+            return (*torch.autograd.grad(o, leaves, g), None, None, None)
 
 
 def fused_attention_heads(q, k, v, scale: float, residual: bool = False):
@@ -236,15 +265,17 @@ def fused_attention_heads(q, k, v, scale: float, residual: bool = False):
             tuple(q.shape), tuple(k.shape), tuple(v.shape)))
     if not (k.dtype == v.dtype == q.dtype):
         raise TypeError("q, k and v must share one dtype")
-    _check_heads_shape(q.shape[1], q.shape[2], q.shape[3], 1)
-    return _HeadsAttention.apply(q, k, v, float(scale), bool(residual))
+    group = _heads_group(*q.shape[1:], q.dtype, pooled=False)
+    return _HeadsAttention.apply(q, k, v, float(scale), bool(residual),
+                                 group)
 
 
 fused_attention_heads_auto = fused_attention_heads
 
 
-def _pooled_kernel(q, k, v, ln, h, scale, residual):
-    """K9 for contiguous CUDA tensors; ``ln`` the six (hd,) LN vectors."""
+def _pooled_kernel(q, k, v, ln, h, scale, residual, group):
+    """K9 for contiguous CUDA tensors, ``group`` heads per block; ``ln``
+    the six (hd,) LN vectors."""
     b, n, c = q.shape
     _build.check_inputs(q, k, v)
     ln = torch.stack([p.float() for p in ln]).contiguous()
@@ -258,7 +289,7 @@ def _pooled_kernel(q, k, v, ln, h, scale, residual):
         code = _build.lib().vct_pooled_attention(
             _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             ln.data_ptr(), o.data_ptr(), b, n, h, c // h, float(scale),
-            int(residual), _build.stream_of(q))
+            int(residual), group, _build.stream_of(q))
     _build.check("pooled_heads_attention", code)
     _build.launches["pooled_heads_attention"] += 1
     return o
@@ -269,11 +300,12 @@ class _PooledAttention(torch.autograd.Function):
     (``_pha_bwd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, gq, bq, gk, bk, gv, bv, h, scale, residual):
+    def forward(ctx, q, k, v, gq, bq, gk, bk, gv, bv, h, scale, residual,
+                group):
         ctx.h, ctx.scale, ctx.residual = h, scale, residual
         ctx.save_for_backward(q, k, v, gq, bq, gk, bk, gv, bv)
         return _pooled_kernel(q, k, v, (gq, bq, gk, bk, gv, bv), h, scale,
-                              residual)
+                              residual, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -283,7 +315,8 @@ class _PooledAttention(torch.autograd.Function):
             o = pooled_attention_reference(q, k, v, (gq, bq), (gk, bk),
                                            (gv, bv), ctx.h, ctx.scale,
                                            ctx.residual)
-            return (*torch.autograd.grad(o, leaves, g), None, None, None)
+            return (*torch.autograd.grad(o, leaves, g), None, None, None,
+                    None)
 
 
 def pooled_heads_attention(q, k, v, gq, bq, gk, bk, gv, bv, h: int,
@@ -306,9 +339,9 @@ def pooled_heads_attention(q, k, v, gq, bq, gk, bk, gv, bv, h: int,
     hd = c // h
     if any(p.shape != (hd,) for p in (gq, bq, gk, bk, gv, bv)):
         raise ValueError("each LN scale and bias must be ({},)".format(hd))
-    _check_heads_shape(n, h, hd, h)
+    group = _heads_group(n, h, hd, q.dtype, pooled=True)
     return _PooledAttention.apply(q, k, v, gq, bq, gk, bk, gv, bv, int(h),
-                                  float(scale), bool(residual))
+                                  float(scale), bool(residual), group)
 
 
 def pooled_heads_attention_auto(q, k, v, ln_q, ln_k, ln_v, h: int,

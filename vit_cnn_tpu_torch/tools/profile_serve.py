@@ -10,8 +10,9 @@ bands: once to warm up and upload the scene, once on the host clock
 without the profiler, once under ``torch.profiler``. One JSON line per
 model:
 
-* ``host_ms_per_band`` (unprofiled, synchronized) and
-  ``request_s_at_this_rate`` (that times the request's band count);
+* ``host_ms_per_band`` (unprofiled, synchronized), ``windows_per_s``
+  at that rate and ``request_s_at_this_rate`` (that times the request's
+  band count);
 * ``device_ms_per_band``: kernel time of the profiled run, and ``busy``:
   that over the unprofiled host ms per band;
 * ``families``: [family, device ms per band, share, launches per band].
@@ -84,6 +85,7 @@ def profile_model(name, scene) -> dict:
     return {
         "model": name, "windows_per_band": rows * wc, "bands": BANDS,
         "host_ms_per_band": host_ms,
+        "windows_per_s": rows * wc / host_ms * 1e3,
         "request_s_at_this_rate": host_ms * bands_per_request / 1e3,
         "device_ms_per_band": device_ms, "busy": device_ms / host_ms,
         "families": [(f, t, t / device_ms, launches[f])
