@@ -26,7 +26,7 @@ from vit_cnn_tpu.models.mm_mamba import MultimodalityMamba as JaxFlagship
 from vit_cnn_tpu_torch.cli import build_parser, run_serve
 from vit_cnn_tpu_torch.convert import flax_to_state_dict, seeded_variables
 from vit_cnn_tpu_torch.infer import fullscene
-from vit_cnn_tpu_torch.infer.server import SceneServer
+from vit_cnn_tpu_torch.infer.server import MAX_SCENES, SceneServer
 from vit_cnn_tpu_torch.models.mm_mamba import MultimodalityMamba
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -117,6 +117,47 @@ def test_server_answers_out_pred_gt_and_keeps_the_scene(scene, tmp_path):
                                   probs.argmax(-1))
     assert 0.0 <= resps[2]["OA"] <= 100.0 and np.isfinite(resps[2]["Kappa"])
     assert server.cache.uploads == 2       # hsi + lidar, once
+
+
+def test_server_keeps_a_few_scenes_and_reloads_changed_files(scene,
+                                                             tmp_path):
+    """Scenes from N distinct paths leave at most MAX_SCENES host arrays
+    and as many device-cache entries; a file rewritten on disk is served
+    anew, a file left alone is not reloaded."""
+    img1, img2, _, _, _, tm = scene
+    hp = {"patch_size": P, "n_classes": K}
+    server = SceneServer(tm, hp, chunk=CHUNK)
+    n = 2 * MAX_SCENES
+    for i in range(n):
+        np.save(tmp_path / "h{}.npy".format(i), img1 + 0.1 * i)
+        np.save(tmp_path / "l{}.npy".format(i), img2)
+    req = lambda i: {"hsi": str(tmp_path / "h{}.npy".format(i)),
+                     "lidar": str(tmp_path / "l{}.npy".format(i))}
+    maps = []
+    for i in range(n):
+        assert server.handle(dict(req(i), out=str(tmp_path / "m.npy")),
+                             None, None)["ok"]
+        maps.append(np.load(tmp_path / "m.npy"))
+        assert len(server._scenes) <= MAX_SCENES
+        assert len(server.cache._entries) <= MAX_SCENES
+    assert server.cache.uploads == 2 * n
+    # the last scene again: held, no upload, the same map
+    server.handle(dict(req(n - 1), out=str(tmp_path / "m.npy")), None, None)
+    assert server.cache.uploads == 2 * n
+    np.testing.assert_array_equal(np.load(tmp_path / "m.npy"), maps[-1])
+    # rewritten in place (same size; the mtime moved on, as a later write
+    # moves it where a filesystem keeps coarse timestamps): loaded anew
+    path = tmp_path / "h{}.npy".format(n - 1)
+    np.save(path, img1)
+    st = os.stat(path)
+    os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns + 10 ** 9))
+    server.handle(dict(req(n - 1), out=str(tmp_path / "m.npy")), None, None)
+    assert server.cache.uploads == 2 * n + 1
+    np.testing.assert_array_equal(np.load(tmp_path / "m.npy"),
+                                  fullscene.full_scene_probabilities(
+                                      tm, img1, img2, hp, chunk=CHUNK))
+    assert len(server._scenes) <= MAX_SCENES
+    assert len(server.cache._entries) <= MAX_SCENES
 
 
 def test_cli_serves_on_the_cpu(tmp_path, monkeypatch):

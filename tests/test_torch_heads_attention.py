@@ -240,6 +240,17 @@ def test_heads_planner_keeps_the_domain(dtype, pooled):
     assert taken > 1000
 
 
+def test_float32_pooled_states_its_shared_memory_limit():
+    """float32 K9 stages all 16 heads of 4 in one block: it takes n = 234
+    and refuses n = 235 with the bytes it would need (bf16 splits the
+    heads instead)."""
+    assert attention._heads_group(234, 16, 4, torch.float32, True) == 16
+    with pytest.raises(ValueError, match="233120 bytes of shared memory "
+                       "per block, over the card's 232448"):
+        attention._heads_group(235, 16, 4, torch.float32, True)
+    assert attention._heads_group(235, 16, 4, torch.bfloat16, True) == 16
+
+
 @pytest.mark.parametrize("n,h,hd,pooled,group", [
     (65, 4, 16, False, 4), (145, 4, 16, False, 4), (146, 4, 16, False, 4),
     (65, 16, 4, True, 16), (512, 8, 32, False, 2), (512, 64, 4, True, 8)])

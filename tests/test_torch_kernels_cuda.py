@@ -11,9 +11,13 @@ attention kernels (K8, K9) are held at one token, 17 tokens (a last key
 tile that is mostly padding), the zoo's token counts, the 512-token limit
 (in bf16 with the heads split over blocks), head widths 4 / 5 / 12 / 16 /
 24 / 32, ragged batches and the strided q / k / v views of a fused
-projection; K8's bf16 instance also against its float32 instance. The tuning sweep's
-variants: every instance of K1's tile and chunk grid (V1) against the
-plain scan and bit for bit against K1, the batch-major scan (V2) at
+projection; K8's bf16 instance also against its float32 instance. K1 and
+K2 at the edges of their tiles: b = 1, 31, 33, 7,588; d = 1, 5, 72, 128;
+n = 1, 7, 16; L = 1, 2, 3, 81; k = 1, 4, 8; forward and reverse; and
+K1's tile as the C entry point plans it equal to ``scan_tile``. The tuning
+sweep's variants: every instance of the first K1's tile and chunk grid
+(V1) against the plain scan and, within the same tolerance, against K1,
+the batch-major scan (V2) at
 ragged batches, and the tensor-core (V3, bf16) and outer-product (V4)
 head-last attention at one token, 65 and 146 tokens, head widths 4 and 16
 and ragged batches. chip_smoke.py covers the serving and training shapes.
@@ -58,7 +62,7 @@ from vit_cnn_tpu_torch.ops.scan_variants import (
     TILE_CHUNKS, TILE_ROWS, selective_scan_batch_major,
     selective_scan_batch_major_reference, selective_scan_tiled)
 from vit_cnn_tpu_torch.ops.selective_scan import (
-    selective_scan, selective_scan_backward,
+    scan_tile, selective_scan, selective_scan_backward,
     selective_scan_backward_reference, selective_scan_reference)
 
 pytestmark = pytest.mark.cuda
@@ -114,6 +118,58 @@ def test_selective_scan(gen, dtype, lead, L, d, n, b, reverse):
     got = selective_scan(u, dt, A, B, C, D, reverse=reverse)
     assert _build.launches["selective_scan"] == before + 1
     _close(got, selective_scan_reference(u, dt, A, B, C, D, reverse), dtype)
+
+
+EDGE_B = [1, 31, 33, 7588]
+EDGE_D = [1, 5, 72, 128]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", EDGE_B)
+@pytest.mark.parametrize("d", EDGE_D)
+def test_selective_scan_tile_edges(gen, dtype, b, d):
+    """K1 at the edges of its tiles: ragged b and d, n below 16, one to
+    three tokens, forward and reverse, one and several streams."""
+    for lead, L, n, reverse in [((), 1, 1, False), ((2,), 2, 7, True),
+                                ((3,), 3, 16, False), ((), 81, 16, True),
+                                ((2,), 81, 7, False)]:
+        args = _scan_args(gen, lead, L, d, n, b, dtype)
+        before = _build.launches["selective_scan"]
+        got = selective_scan(*args, reverse=reverse)
+        assert _build.launches["selective_scan"] == before + 1
+        _close(got, selective_scan_reference(*args, reverse), dtype)
+
+
+def test_c_tile_plan_equals_scan_tile(gen):
+    lib = _build.lib()
+    for ns in (1, 2, 4, 6, 10):
+        for d in (1, 2, 3, 5, 9, 17, 52, 72, 100, 128, 255, 256):
+            for b in (1, 33, 1001, 1024, 7588, 40960):
+                for dtype in DTYPES:
+                    R = scan_tile(ns, 81, d, 16, b, dtype)[0]
+                    assert lib.vct_selective_scan_tile(
+                        _build.dtype_code(torch.empty(0, dtype=dtype)), ns,
+                        81, d, 16, b) == R, (dtype, ns, d, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", EDGE_B)
+@pytest.mark.parametrize("d", EDGE_D)
+def test_dir_conv_silu_edges(gen, dtype, b, d):
+    """K2 at the edges of its tile: ragged b (odd b stores pairs that are
+    not aligned one value at a time) and d, one to three tokens, 1, 4 and
+    8 taps, with and without reverse streams."""
+    for L, k, nb, rev_rows in [(1, 1, 1, (0,)), (2, 4, 2, (1,)),
+                               (3, 8, 3, (0, 2)), (81, 4, 6, (0, 1, 2, 3)),
+                               (81, 8, 2, ()), (81, 1, 3, (2,))]:
+        orders, _ = _orders(L, nb, L + k)
+        rr = torch.tensor(rev_rows, dtype=torch.int32, device="cuda")
+        u = _randn(gen, L, d, b).to(dtype)
+        cw, cb = 0.5 * _randn(gen, k, d), 0.1 * _randn(gen, d)
+        before = _build.launches["dir_conv_silu"]
+        got = dir_conv_silu(u, cw, cb, orders, rr)
+        assert _build.launches["dir_conv_silu"] == before + 1
+        _close(got, dir_conv_silu_reference(u, cw, cb, orders, rr), dtype)
 
 
 def _orders(L, nb, seed):
@@ -432,7 +488,7 @@ def test_heads_wrappers_refuse_what_the_kernels_do_not_take(gen):
     ((), 13, 9, 4, 70, False), ((2,), 30, 5, 16, 1, True)])
 def test_every_tiled_scan_instance(gen, dtype, lead, L, d, n, b, reverse):
     """Each (rows, chunk) instance of V1 against the plain scan; the (8, 8)
-    instance is K1 and gives K1's bits."""
+    instance, the first K1, also against K1."""
     args = _scan_args(gen, lead, L, d, n, b, dtype)
     want = selective_scan_reference(*args, reverse)
     k1 = selective_scan(*args, reverse=reverse)
@@ -444,7 +500,7 @@ def test_every_tiled_scan_instance(gen, dtype, lead, L, d, n, b, reverse):
             assert _build.launches["selective_scan_tiled"] == before + 1
             _close(got, want, dtype)
             if (rows, chunk) == (8, 8):
-                assert torch.equal(got, k1)
+                _close(got, k1, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -4,7 +4,8 @@ a tiny Synthetic scene: 24 x 40, 20 bands, 6 classes.
 The conditioning script's CPU pair (default threads against one thread)
 must run and report a spread; on this tiny step it stays below 1e-3 of
 each gradient's scale. The profiler's family names must sort the kernel
-names the profile meets.
+names the profile meets, and the ablation tool must read each kernel's
+registers, spills and shared memory from ``-Xptxas -v``.
 """
 
 import json
@@ -13,7 +14,8 @@ import pytest
 import torch
 
 from vit_cnn_tpu_torch import tools
-from vit_cnn_tpu_torch.tools import profile_train, train_conditioning
+from vit_cnn_tpu_torch.tools import (kernel_ablation, profile_train,
+                                     train_conditioning)
 
 TINY = {"VCT_SYN_H": "24", "VCT_SYN_W": "40", "VCT_SYN_BANDS": "20",
         "VCT_SYN_CLASSES": "6"}
@@ -55,6 +57,8 @@ def test_flagship_step_cpu(tiny_scene):
 @pytest.mark.parametrize("kernel,family", [
     ("selective_scan_bwd_kernel<16>", "K5 scan backward"),
     ("selective_scan_kernel<float>", "K1 scan forward"),
+    ("selective_scan_fwd_kernel<__nv_bfloat16, 4, true>", "K1 scan forward"),
+    ("dir_conv_silu_kernel<__nv_bfloat16, 4>", "K2 dir_conv forward"),
     ("dir_conv_silu_bwd_kernel", "K6 dir_conv backward"),
     ("inv_perm_weighted_sum_bwd_kernel", "K7 inv-sum backward"),
     ("sum_partials_kernel", "K5-K7 partial sums"),
@@ -68,3 +72,27 @@ def test_flagship_step_cpu(tiny_scene):
 ])
 def test_profile_families(kernel, family):
     assert profile_train.family(kernel) == family
+
+
+PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125selective_scan_fwd\
+_kernelI13__nv_bfloat16Li2ELb1EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125selective_scan_fwd\
+_kernelI13__nv_bfloat16Li2ELb1EEEvPKT_
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 41984 bytes smem, 456 \
+bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120sum_partials\
+_kernelIfEEvPKfPT_iix' for 'sm_90a'
+ptxas info    : Used 12 registers, 384 bytes cmem[0]
+"""
+
+
+def test_kernel_ablation_reads_ptxas_usage():
+    name = ("_ZN12_GLOBAL__N_125selective_scan_fwd_kernelI13__nv_bfloat16"
+            "Li2ELb1EEEvPKT_")
+    assert kernel_ablation.ptxas_usage(
+        PTXAS, "selective_scan_fwd_kernel") == {name: dict(
+            spill_stores=8, spill_loads=4, registers=96, smem=41984)}
+    assert kernel_ablation.ptxas_usage(PTXAS, "dir_conv_silu_kernel") == {}

@@ -33,6 +33,35 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// two neighbouring values of a dtype, as one 4- or 8-byte word
+template <typename T>
+struct PairOf;
+template <>
+struct PairOf<float> {
+  using type = float2;
+  static __device__ __forceinline__ float2 unpack(float2 v) { return v; }
+  static __device__ __forceinline__ float2 pack(float x, float y) {
+    return make_float2(x, y);
+  }
+};
+template <>
+struct PairOf<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+  static __device__ __forceinline__ float2 unpack(__nv_bfloat162 v) {
+    return __bfloat1622float2(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat162 pack(float x, float y) {
+    return __floats2bfloat162_rn(x, y);
+  }
+};
+
+// 2^x by the special-function unit, denormals flushed: one MUFU op
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -21,24 +21,69 @@
 // and (49, 128) with 6 + 4 streams that is about 11 tensors of
 // L * d * b elements each, so both are memory bound.
 //
-// Design: one thread per (d, b) column, warps along b so that every row
-// access is a coalesced 64- or 128-byte segment, whatever the gathered
-// token index. K2 stages its block's whole (L, 4, 32) tile of u in shared
-// memory once (float32) and reads the k taps of every order from there,
-// so u crosses the memory bus once for all 10 streams. K3 reads each
-// input row exactly once (the orders are permutations). The order tables
-// and weights are small int32 / float32 device tensors; the ragged batch
-// edge is masked in the kernels, with no padding.
+// Design of K3: one thread per (d, b) column, warps along b so that every
+// row access is a coalesced 64- or 128-byte segment, whatever the gathered
+// token index. K3 reads each input row exactly once (the orders are
+// permutations).
+//
+// Design of K2 (the first K2 staged a (L, 4, 32) float32 tile, read each
+// tap as two dependent shared loads, took SiLU by expf and an IEEE
+// division, and stored 2 bytes per thread):
+// - The block stages its whole (L, 2 channels, 64 sequences) tile of u in
+//   shared memory once, in u's dtype (bf16 values are exact in bf16), so u
+//   crosses the memory bus once for all the streams: 20.7 KB at L = 81 in
+//   bf16, where the first K2's float32 tile of as many columns took
+//   41.5 KB.
+// - A thread owns two neighbouring sequences of one channel: each gathered
+//   row is one 4-byte (bf16) or 8-byte (float32) shared load, and each
+//   output row one packed store, 128 bytes per warp in bf16 (odd b falls
+//   back to two scalar stores where a pair is not aligned).
+// - A sliding window in registers: walking an order's tokens, the last K
+//   gathered values (K = 4, or 8 for k > 4; the k taps sit at its end,
+//   zero weights before them) serve both streams of the order. At token t
+//   the forward output t and the reverse output t - K + 1 read the same K
+//   values, so each gathered row costs one order lookup (a broadcast), one
+//   shared load and K FMAs per stream. The walk runs K - 1 tokens past the
+//   end on zeros and predicates its stores, so its loop body has no
+//   branch and the compiler interleaves the unrolled tokens.
+// - SiLU as x / (1 + 2^(-x log2 e)) with ex2.approx (denormals flushed)
+//   and __fdividef: two MUFU ops.
+// The order tables and weights are small int32 / float32 device tensors;
+// the ragged batch edge is masked in the kernels, with no padding.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kLanes = 32;      // sequences per block
-constexpr int kConvRows = 4;    // channels per block in K2 (bounds its smem)
+constexpr int kConvRows = 2;    // channels per block in K2
+constexpr int kConvLanes = 2 * kLanes;   // sequences per K2 block
 constexpr int kSumRows = 8;     // channels per block in K3
 constexpr int kMaxTaps = 8;
 
-template <typename T>
+__device__ __forceinline__ float silu_fast(float x) {
+  return __fdividef(x, 1.f + vct::ex2_approx(-1.4426950408889634f * x));
+}
+
+// p[0] = x0 and p[1] = x1 (if v1): one packed store where the pair is
+// known aligned (kEven) or found aligned and both are in range
+template <typename T, bool kEven>
+__device__ __forceinline__ void store_pair(T* p, float x0, float x1,
+                                           bool v1) {
+  using P = typename vct::PairOf<T>::type;
+  if (kEven ||
+      (v1 && reinterpret_cast<uintptr_t>(p) % sizeof(P) == 0)) {
+    *reinterpret_cast<P*>(p) = vct::PairOf<T>::pack(x0, x1);
+  } else {
+    p[0] = vct::from_f32<T>(x0);
+    if (v1) p[1] = vct::from_f32<T>(x1);
+  }
+}
+
+// kEven: b is even, so every thread's pair of sequences is in range and
+// every pair of outputs is aligned for one packed store
+template <typename T, int K, bool kEven>
 __global__ void __launch_bounds__(kLanes * kConvRows)
 dir_conv_silu_kernel(const T* __restrict__ u, const float* __restrict__ cw,
                      const float* __restrict__ cb,
@@ -46,66 +91,101 @@ dir_conv_silu_kernel(const T* __restrict__ u, const float* __restrict__ cw,
                      const int* __restrict__ rev_rows,
                      T* __restrict__ fwd, T* __restrict__ rev,
                      int L, int d, int b, int nb, int nr, int k) {
-  extern __shared__ float smem[];
-  float* su = smem;                                         // [L][rows][lanes]
-  int* sord = reinterpret_cast<int*>(su + L * kConvRows * kLanes);  // [nb][L]
+  using P = typename vct::PairOf<T>::type;
+  constexpr int kThreads = kLanes * kConvRows;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* su = reinterpret_cast<T*>(smem_raw);          // [L][rows][kConvLanes]
+  int* sord = reinterpret_cast<int*>(su + static_cast<size_t>(L) * kConvRows *
+                                              kConvLanes);    // [nb][L]
+  int* sslot = sord + nb * L;       // [nb]: each order's reverse stream or -1
 
   const int lane = threadIdx.x;
   const int row = threadIdx.y;
-  const int bi = blockIdx.x * kLanes + lane;
-  const int di = blockIdx.y * kConvRows + row;
   const int tid = row * kLanes + lane;
+  const int b0 = blockIdx.x * kConvLanes;
+  const int d0 = blockIdx.y * kConvRows;
   const size_t seq = static_cast<size_t>(d) * b;
 
-  for (int idx = tid; idx < nb * L; idx += kLanes * kConvRows)
-    sord[idx] = orders[idx];
-  for (int idx = tid; idx < L * kConvRows * kLanes; idx += kLanes * kConvRows) {
-    const int l = idx % kLanes;
-    const int r = (idx / kLanes) % kConvRows;
-    const int t = idx / (kLanes * kConvRows);
-    const int bb = blockIdx.x * kLanes + l;
-    const int dd = blockIdx.y * kConvRows + r;
-    su[idx] = (bb < b && dd < d)
-                  ? vct::to_f32(u[t * seq + static_cast<size_t>(dd) * b + bb])
-                  : 0.f;
-  }
-  __syncthreads();
-  if (bi >= b || di >= d) return;
-
-  float w[kMaxTaps];
-#pragma unroll
-  for (int j = 0; j < kMaxTaps; ++j) w[j] = j < k ? cw[j * d + di] : 0.f;
-  const float bias = cb[di];
-  const size_t col = static_cast<size_t>(di) * b + bi;
-  const float* mine = su + row * kLanes + lane;            // stride rows*lanes per t
-  const int tstride = kConvRows * kLanes;
-
-  for (int o = 0; o < nb; ++o) {
-    const int* ord = sord + o * L;
+  for (int idx = tid; idx < nb * L; idx += kThreads) sord[idx] = orders[idx];
+  for (int o = tid; o < nb; o += kThreads) {
     int slot = -1;
     for (int j = 0; j < nr; ++j)
       if (rev_rows[j] == o) slot = j;
-    T* out_f = fwd + static_cast<size_t>(o) * L * seq;
-    for (int t = 0; t < L; ++t) {
-      float acc = bias;
+    sslot[o] = slot;
+  }
+  for (int idx = tid; idx < L * kConvRows * kConvLanes; idx += kThreads) {
+    const int l = idx % kConvLanes;
+    const int r = (idx / kConvLanes) % kConvRows;
+    const int t = idx / (kConvLanes * kConvRows);
+    const int bb = b0 + l;
+    const int dd = d0 + r;
+    su[idx] = (bb < b && dd < d)
+                  ? u[t * seq + static_cast<size_t>(dd) * b + bb]
+                  : vct::from_f32<T>(0.f);
+  }
+  __syncthreads();
+  const int di = d0 + row;
+  const int bi = b0 + 2 * lane;
+  if (bi >= b || di >= d) return;
+  const bool v1 = bi + 1 < b;
+
+  // tap j of the window weighs the value K - 1 - j tokens back
+  float w[K];
 #pragma unroll
-      for (int j = 0; j < kMaxTaps; ++j) {
-        const int src = t - (k - 1 - j);
-        if (j < k && src >= 0) acc += w[j] * mine[ord[src] * tstride];
-      }
-      out_f[t * seq + col] = vct::from_f32<T>(acc / (1.f + expf(-acc)));
-    }
-    if (slot < 0) continue;
-    T* out_r = rev + static_cast<size_t>(slot) * L * seq;
-    for (int t = 0; t < L; ++t) {
-      float acc = bias;
+  for (int j = 0; j < K; ++j)
+    w[j] = j >= K - k ? cw[(j - (K - k)) * d + di] : 0.f;
+  const float bias = cb[di];
+  const size_t col = static_cast<size_t>(di) * b + bi;
+  const P* mine = reinterpret_cast<const P*>(su) + row * kLanes + lane;
+  constexpr int kStride = kConvRows * kLanes;      // pairs per token
+
+  // One walk over an order's tokens; the window holds pu[t - K + 1 .. t].
+  // At token t it gives forward output t and (kRev) reverse output
+  // t - K + 1. The walk runs K - 1 tokens past the end on zeros, so the
+  // loop body has no branch: the outputs outside [0, L) are computed and
+  // not stored.
+  auto walk = [&](const int* ord, T* out_f, T* out_r, auto rev_on) {
+    constexpr bool kRev = decltype(rev_on)::value;
+    float2 win[K];
 #pragma unroll
-      for (int j = 0; j < kMaxTaps; ++j) {
-        const int src = t + (k - 1 - j);
-        if (j < k && src < L) acc += w[j] * mine[ord[src] * tstride];
+    for (int j = 0; j < K; ++j) win[j] = make_float2(0.f, 0.f);
+#pragma unroll 4
+    for (int t = 0; t < L + K - 1; ++t) {
+#pragma unroll
+      for (int j = 0; j < K - 1; ++j) win[j] = win[j + 1];
+      const float2 got = vct::PairOf<T>::unpack(mine[ord[min(t, L - 1)] * kStride]);
+      win[K - 1] = t < L ? got : make_float2(0.f, 0.f);
+      float x0 = bias, x1 = bias;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        x0 = fmaf(w[j], win[j].x, x0);
+        x1 = fmaf(w[j], win[j].y, x1);
       }
-      out_r[t * seq + col] = vct::from_f32<T>(acc / (1.f + expf(-acc)));
+      if (t < L)
+        store_pair<T, kEven>(out_f + t * seq, silu_fast(x0), silu_fast(x1),
+                             v1);
+      if constexpr (kRev) {
+        const int s = t - (K - 1);
+        float r0 = bias, r1 = bias;
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          r0 = fmaf(w[j], win[K - 1 - j].x, r0);
+          r1 = fmaf(w[j], win[K - 1 - j].y, r1);
+        }
+        if (s >= 0)
+          store_pair<T, kEven>(out_r + s * seq, silu_fast(r0), silu_fast(r1),
+                               v1);
+      }
     }
+  };
+  for (int o = 0; o < nb; ++o) {
+    const int slot = sslot[o];
+    T* out_f = fwd + static_cast<size_t>(o) * L * seq + col;
+    if (slot >= 0)
+      walk(sord + o * L, out_f, rev + static_cast<size_t>(slot) * L * seq + col,
+           std::true_type{});
+    else
+      walk(sord + o * L, out_f, out_f, std::false_type{});
   }
 }
 
@@ -144,6 +224,45 @@ inv_perm_weighted_sum_kernel(const T* __restrict__ yf,
   }
 }
 
+template <typename T, int K, bool kEven>
+int launch_conv(const void* u, const float* cw, const float* cb,
+                const int* orders, const int* rev_rows, void* fwd, void* rev,
+                int L, int d, int b, int nb, int nr, int k, size_t smem,
+                cudaStream_t stream) {
+  const auto kernel = dir_conv_silu_kernel<T, K, kEven>;
+  cudaError_t err = vct::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 block(kLanes, kConvRows);
+  dim3 grid((b + kConvLanes - 1) / kConvLanes,
+            (d + kConvRows - 1) / kConvRows);
+  kernel<<<grid, block, smem, stream>>>(
+      static_cast<const T*>(u), cw, cb, orders, rev_rows, static_cast<T*>(fwd),
+      static_cast<T*>(rev), L, d, b, nb, nr, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int by_taps(const void* u, const float* cw, const float* cb,
+            const int* orders, const int* rev_rows, void* fwd, void* rev,
+            int L, int d, int b, int nb, int nr, int k, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * L * kConvRows * kConvLanes +
+                      sizeof(int) * (nb * L + nb);
+  const bool even = b % 2 == 0;
+  if (k <= 4 && even)
+    return launch_conv<T, 4, true>(u, cw, cb, orders, rev_rows, fwd, rev, L,
+                                   d, b, nb, nr, k, smem, stream);
+  if (k <= 4)
+    return launch_conv<T, 4, false>(u, cw, cb, orders, rev_rows, fwd, rev, L,
+                                    d, b, nb, nr, k, smem, stream);
+  if (even)
+    return launch_conv<T, kMaxTaps, true>(u, cw, cb, orders, rev_rows, fwd,
+                                          rev, L, d, b, nb, nr, k, smem,
+                                          stream);
+  return launch_conv<T, kMaxTaps, false>(u, cw, cb, orders, rev_rows, fwd,
+                                         rev, L, d, b, nb, nr, k, smem,
+                                         stream);
+}
+
 }  // namespace
 
 extern "C" int vct_dir_conv_silu(int dtype, const void* u, const float* cw,
@@ -155,28 +274,14 @@ extern "C" int vct_dir_conv_silu(int dtype, const void* u, const float* cw,
       (d + kConvRows - 1) / kConvRows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (L == 0 || d == 0 || b == 0) return 0;
-  const size_t smem = sizeof(float) * L * kConvRows * kLanes + sizeof(int) * nb * L;
-  dim3 block(kLanes, kConvRows);
-  dim3 grid((b + kLanes - 1) / kLanes, (d + kConvRows - 1) / kConvRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == vct::kF32) {
-    err = vct::allow_smem(dir_conv_silu_kernel<float>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dir_conv_silu_kernel<float><<<grid, block, smem, st>>>(
-        static_cast<const float*>(u), cw, cb, orders, rev_rows,
-        static_cast<float*>(fwd), static_cast<float*>(rev), L, d, b, nb, nr, k);
-  } else if (dtype == vct::kBF16) {
-    err = vct::allow_smem(dir_conv_silu_kernel<__nv_bfloat16>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dir_conv_silu_kernel<__nv_bfloat16><<<grid, block, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(u), cw, cb, orders, rev_rows,
-        static_cast<__nv_bfloat16*>(fwd), static_cast<__nv_bfloat16*>(rev),
-        L, d, b, nb, nr, k);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == vct::kF32)
+    return by_taps<float>(u, cw, cb, orders, rev_rows, fwd, rev, L, d, b, nb,
+                          nr, k, st);
+  if (dtype == vct::kBF16)
+    return by_taps<__nv_bfloat16>(u, cw, cb, orders, rev_rows, fwd, rev, L, d,
+                                  b, nb, nr, k, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int vct_inv_perm_weighted_sum(int dtype, const void* yf,

@@ -1,8 +1,11 @@
-// K1: selective-scan forward (Mamba-1 recurrence), lane-major layout, and
-// V1: the tile and chunk grid of the same kernel.
+// V1: the tile and chunk grid of the first selective-scan forward.
 //
-// K1 replaces the Pallas TPU kernel vit_cnn_tpu/ops/selective_scan.py
-// `_scan_kernel` (launched by `_pallas_forward`). Computes, per stream s,
+// The first K1 replaced the Pallas TPU kernel
+// vit_cnn_tpu/ops/selective_scan.py `_scan_kernel` (launched by
+// `_pallas_forward`). The main path now runs the kernel of
+// csrc/selective_scan_fwd.cu; this file keeps the first K1 unchanged as the
+// (8, 8) instance of its grid (tools/scan_ab.py holds it against an older
+// commit's K1). It computes, per stream s,
 // channel d and sequence b:
 //   h_t = exp(dt_t * A[d]) * h_{t-1} + (dt_t * u_t) * B_t
 //   y_t = C_t . h_t + D[d] * u_t
@@ -14,8 +17,7 @@
 // sequences, so the tile that varies on the card is the channels per block
 // (kRows); the time chunk (kChunk) is the steps of B and C staged per
 // synchronisation. The grid is kRows in {4, 8, 16} x kChunk in {8, 16, 27}
-// (`vct_selective_scan_tiled`); the main path launches the (8, 8) instance
-// through `vct_selective_scan`, the same code.
+// (`vct_selective_scan_tiled`).
 //
 // Layout: u, dt, y are (ns, L, d, b); B, C are (ns, L, n, b); A is (d, n)
 // and D is (d,), both float32. b is the innermost axis, so a warp's 32
@@ -34,7 +36,7 @@
 // block is a 32-sequence by kRows-channel tile; every channel of the tile
 // reads the same B_t and C_t, so the block stages them for kChunk steps at
 // a time in shared memory: 4 KB per step, so 32 KB at chunk 8, in static
-// shared memory as K1 always had it, and 64 KB at chunk 16 and 110.6 KB at
+// shared memory as the first K1 had it, and 64 KB at chunk 16 and 110.6 KB at
 // chunk 27, above the 48 KB of static shared memory: those instances take
 // dynamic shared memory with the cap raised per instance (fewer blocks
 // then fit on an SM). The ragged batch edge is masked in the kernel, with
@@ -189,16 +191,6 @@ int scan(int dtype, int rows, int chunk, const ScanArgs& p) {
 }
 
 }  // namespace
-
-extern "C" int vct_selective_scan(int dtype, const void* u, const void* dt,
-                                  const float* A, const void* B,
-                                  const void* C, const float* D, void* y,
-                                  int ns, int L, int d, int n, int b,
-                                  int reverse, void* stream) {
-  return scan(dtype, 8, 8,
-              ScanArgs{u, dt, A, B, C, D, y, ns, L, d, n, b, reverse,
-                       static_cast<cudaStream_t>(stream)});
-}
 
 // V1: the (rows, chunk) instance of the grid; rows in {4, 8, 16}, chunk in
 // {8, 16, 27}, anything else is cudaErrorInvalidValue

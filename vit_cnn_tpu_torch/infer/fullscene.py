@@ -27,8 +27,7 @@ class SceneCache:
     upload. Keyed by the id() of the host array with a weakref finalizer
     (the entry goes when the caller drops the array); a host array
     mutated in place is not re-uploaded. On the CPU the cached tensor
-    aliases the host array and keeps its entry alive for the cache's
-    lifetime."""
+    aliases the host array and keeps its entry alive until :meth:`drop`."""
 
     def __init__(self):
         self._entries: Dict[int, tuple] = {}
@@ -48,6 +47,14 @@ class SceneCache:
             entry[1][key] = host.to(device).to(dtype)
             self.uploads += 1
         return entry[1][key]
+
+    def drop(self, img) -> None:
+        """Forget the device copies of a host array (whose owner lets it
+        go; on the CPU the weakref alone would never fire)."""
+        base = img if isinstance(img, np.ndarray) else np.asarray(img)
+        entry = self._entries.get(id(base))
+        if entry is not None and entry[0]() is base:
+            del self._entries[id(base)]
 
 
 def sliding_window_origins(h: int, w: int, patch_size: int,

@@ -20,7 +20,9 @@ Response: {"ok": true, "seconds": ..., "shape": [...], ...} or
 
 from __future__ import annotations
 
+import collections
 import json
+import os
 import time
 from typing import Dict, Optional, TextIO
 
@@ -30,6 +32,17 @@ import torch
 from ..data.io import load_mat_key, open_file
 from ..metrics import metrics
 from .fullscene import SceneCache, full_scene_probabilities
+
+#: host scene arrays a server keeps (least recently used first out): one
+#: request's HSI, LiDAR and ground truth, and one more
+MAX_SCENES = 4
+
+
+def _stamp(spec: str):
+    """(mtime in ns, size) of the file behind ``spec``."""
+    path = spec.rsplit(":", 1)[0] if ".mat:" in spec else spec
+    st = os.stat(path)
+    return st.st_mtime_ns, st.st_size
 
 
 def load_array(spec: str) -> np.ndarray:
@@ -48,7 +61,10 @@ class SceneServer:
     """Holds an eval-mode model and its hyperparameters and serves scenes.
 
     Host scene arrays loaded from paths are kept per path, so the
-    device-resident scene cache hits on a repeated request."""
+    device-resident scene cache hits on a repeated request: at most
+    :data:`MAX_SCENES` of them, the least recently used dropped first
+    (with their device copies), and a path whose file changed on disk
+    (mtime or size) is loaded anew."""
 
     def __init__(self, model: torch.nn.Module, hyperparams: Dict,
                  ignored_labels=(), chunk: int = 8192):
@@ -57,14 +73,28 @@ class SceneServer:
         self.ignored_labels = list(ignored_labels)
         self.chunk = chunk
         self.cache = SceneCache()
-        self._scenes: Dict[str, np.ndarray] = {}
+        # path -> (file stamp, host array), least recently used first
+        self._scenes: "collections.OrderedDict[str, tuple]" = \
+            collections.OrderedDict()
 
     def _scene(self, spec: Optional[str], default: np.ndarray):
         if not spec:
             return default
-        if spec not in self._scenes:
-            self._scenes[spec] = load_array(spec)
-        return self._scenes[spec]
+        stamp = _stamp(spec)
+        held = self._scenes.get(spec)
+        if held is not None and held[0] == stamp:
+            self._scenes.move_to_end(spec)
+            return held[1]
+        if held is not None:
+            self._drop(spec)
+        arr = load_array(spec)
+        self._scenes[spec] = (stamp, arr)
+        while len(self._scenes) > MAX_SCENES:
+            self._drop(next(iter(self._scenes)))
+        return arr
+
+    def _drop(self, spec: str) -> None:
+        self.cache.drop(self._scenes.pop(spec)[1])
 
     def serve(self, img1: np.ndarray, img2: np.ndarray,
               stride: Optional[int] = None) -> np.ndarray:

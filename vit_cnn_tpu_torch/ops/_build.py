@@ -48,6 +48,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 _SIGNATURES = {
     "vct_selective_scan": [_I, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P],
+    "vct_selective_scan_tile": [_I] * 6,
     "vct_dir_conv_silu": [_I, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _P],
     "vct_inv_perm_weighted_sum": [_I, _P, _P, _P, _P, _P, _P, _P,

@@ -3,11 +3,13 @@
 Ports of the JAX package's tuning probes, forward only as they are:
 
 * :func:`selective_scan_tiled` — V1 (``csrc/selective_scan.cu``, the
-  counterpart of ``perf/scan_sweep.py`` ``_kernel_lanemajor``): K1's kernel
-  at one instance of its (channels per block, staged time steps) grid,
-  :data:`TILE_ROWS` x :data:`TILE_CHUNKS`. The main path runs the (8, 8)
-  instance as K1 (:func:`.selective_scan.selective_scan`). Its plain version
-  is :func:`.selective_scan.selective_scan_reference`; lane-major layout.
+  counterpart of ``perf/scan_sweep.py`` ``_kernel_lanemajor``): the first
+  K1's kernel at one instance of its (channels per block, staged time
+  steps) grid, :data:`TILE_ROWS` x :data:`TILE_CHUNKS`. The (8, 8)
+  instance is that first K1 itself; the main path's K1
+  (:func:`.selective_scan.selective_scan`) is ``csrc/selective_scan_fwd.cu``.
+  Its plain version is :func:`.selective_scan.selective_scan_reference`;
+  lane-major layout.
 * :func:`selective_scan_batch_major` — V2 (``csrc/scan_variants.cu``, the
   counterpart of ``perf/scan_bm_sweep.py`` ``_scan_kernel_bm``): the scan
   read and written in the mixer's batch-major layout, u, dt (b, L, d) and

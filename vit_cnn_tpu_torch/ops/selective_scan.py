@@ -9,10 +9,12 @@ Port of :mod:`vit_cnn_tpu.ops.selective_scan`:
   (autograd through the plain forward), what K5 is held against.
 * :func:`selective_scan` — the public wrapper. A CPU tensor takes the
   plain version; a CUDA tensor runs an autograd Function whose forward is
-  kernel K1 (``csrc/selective_scan.cu``, the counterpart of the Pallas
+  kernel K1 (``csrc/selective_scan_fwd.cu``, the counterpart of the Pallas
   ``_scan_kernel``) and whose backward is kernel K5
   (``csrc/selective_scan_bwd.cu``, the counterpart of
   ``_scan_bwd_kernel``), or raises.
+* :func:`scan_tile` — K1's tile for a launch (channels per thread and
+  warps per block), the formula the C entry point plans with.
 
 Layout (the JAX kernel's ``lane_major_io``): u, dt are (L, d, b) or
 (ns, L, d, b); B, C are (L, n, b) or (ns, L, n, b); A is (d, n); D is (d,).
@@ -26,6 +28,42 @@ from __future__ import annotations
 import torch
 
 from . import _build
+
+#: K1's compiled limits (csrc/selective_scan_fwd.cu)
+SCAN_MAX_N = 16
+SCAN_LANES = 32              # sequences per block, one warp wide
+SCAN_ROWS = 4                # warps per block
+SCAN_FILL_WARPS = 2 * 132 * 16   # two waves of 16 warps on the 132 SMs
+SCAN_CHUNK = 4               # steps per staging buffer
+#: K1's static shared memory: B and C, two buffers of SCAN_CHUNK steps of
+#: 32 lanes x 20 float32, and A of at most 16 channels x 16
+SCAN_SMEM = 2 * 2 * SCAN_CHUNK * SCAN_LANES * 20 * 4 + 16 * 16 * 4
+GRID_Y_MAX = GRID_Z_MAX = 65535
+
+
+def scan_tile(ns: int, L: int, d: int, n: int, b: int,
+              dtype=torch.bfloat16):
+    """K1's tile for a launch over ns streams of (L, d) x b sequences in
+    ``dtype``: (R, rows), each thread R channels of one sequence, each
+    block 32 sequences by ``rows`` = :data:`SCAN_ROWS` warps. bf16 takes
+    R = 2; float32, whose loads are twice the bytes, takes R = 4 (each
+    block of channels re-reads its sequences' B and C: half as many
+    blocks) where that launch still has :data:`SCAN_FILL_WARPS` warps, so
+    a small batch such as training's 1,024 still fills the card. The C
+    entry point plans with the same formula (``plan`` in
+    csrc/selective_scan_fwd.cu). Raises ValueError for a shape K1 does not
+    take."""
+    if not (1 <= n <= SCAN_MAX_N and ns <= GRID_Z_MAX):
+        raise ValueError("K1 takes n <= {} and at most {} streams; got n={}, "
+                         "ns={}".format(SCAN_MAX_N, GRID_Z_MAX, n, ns))
+    lane_blocks = -(-b // SCAN_LANES)
+    blocks = {R: -(-d // (SCAN_ROWS * R)) for R in (2, 4)}
+    fills = ns * blocks[4] * SCAN_ROWS * lane_blocks >= SCAN_FILL_WARPS
+    R = 4 if dtype == torch.float32 and fills else 2
+    if blocks[R] > GRID_Y_MAX:
+        raise ValueError("K1 takes d <= {}; got d={}".format(
+            GRID_Y_MAX * SCAN_ROWS * R, d))
+    return R, SCAN_ROWS
 
 
 def selective_scan_reference(u, dt, A, B, C, D, reverse: bool = False):
@@ -86,6 +124,7 @@ def _forward_kernel(u, dt, A, B, C, D, reverse):
     A32, D32 = A.float().contiguous(), D.float().contiguous()
     _build.check_inputs(u, dt, A32, B, C, D32)
     ns, L, d, n, b = _dims(u, A)
+    scan_tile(ns, L, d, n, b, u.dtype)       # raises for what K1 refuses
     y = torch.empty_like(u)
     with torch.cuda.device(u.device):
         code = _build.lib().vct_selective_scan(

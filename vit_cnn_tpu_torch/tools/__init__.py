@@ -5,7 +5,8 @@
   python -m vit_cnn_tpu_torch.tools.profile_serve       # serving profile
   python -m vit_cnn_tpu_torch.tools.scan_sweep          # K1's variants
   python -m vit_cnn_tpu_torch.tools.heads_attn_variants # K8's variants
-  python -m vit_cnn_tpu_torch.tools.scan_ab OTHER.cu    # K1 against K1
+  python -m vit_cnn_tpu_torch.tools.scan_ab OTHER.cu    # old K1 vs V1 (8, 8)
+  python -m vit_cnn_tpu_torch.tools.kernel_ablation scan|conv A.cu ...
 
 The first three build their models as ``chip_smoke.py`` does: at
 Houston2013 width on the Synthetic scene at 349 x 1905, with the seeded
@@ -13,9 +14,11 @@ weights of ``convert.seeded_state_dict``. The two sweeps time the scan's
 and head-last attention's variants (ops/scan_variants.py,
 ops/heads_variants.py) at the serving shapes and the probes' shapes
 against their bounds (:func:`bound`, with CUDA-event medians,
-:func:`median_ms`); ``chip_smoke.py`` calls the same functions. The last
-times K1 built from another commit's ``csrc/selective_scan.cu`` beside
-this checkout's, on the same inputs (:func:`scan_inputs`).
+:func:`median_ms`); ``chip_smoke.py`` calls the same functions.
+``scan_ab`` times an older commit's K1 beside this checkout's V1 (8, 8),
+the first K1 kept as a template, on the same inputs (:func:`scan_inputs`);
+``kernel_ablation`` builds copies of K1 or K2 (variants, or another
+commit's file) and times them side by side.
 """
 
 from __future__ import annotations

@@ -36,6 +36,7 @@ BATCH, WARM, STEPS = 1024, 3, 5
 # (substring of the kernel name, family), tried in order
 _FAMILIES = (
     ("selective_scan_bwd", "K5 scan backward"),
+    ("selective_scan_fwd_kernel", "K1 scan forward"),
     ("selective_scan_kernel", "K1 scan forward"),
     ("dir_conv_silu_bwd", "K6 dir_conv backward"),
     ("dir_conv_silu_kernel", "K2 dir_conv forward"),

@@ -1,21 +1,24 @@
-"""K1 built from another source beside this checkout's K1, on the card.
+"""An older commit's K1 beside this checkout's V1 (8, 8), on the card.
 
   python -m vit_cnn_tpu_torch.tools.scan_ab OTHER.cu
 
-``OTHER.cu`` is the ``csrc/selective_scan.cu`` of another commit (for
+``OTHER.cu`` is the ``csrc/selective_scan.cu`` of an older commit whose
+K1 (``vct_selective_scan``) was the (8, 8) instance of V1's grid (for
 example the parent's, unpacked with ``git archive``), with its
 ``common.cuh`` beside it. It and this checkout's ``csrc/selective_scan.cu``
-are each built with the flags of ops/_build.py into a library of their
-own, and both libraries' ``vct_selective_scan`` (the main path's entry)
-run on the same inputs at the flagship's serving shapes: stage 1 (81, 72)
-and stage 2 (49, 128), 6 forward and 4 reverse streams, b = 7,588, in
-bf16 and float32. Per shape it prints, as one JSON line, each side's
-CUDA-event medians from :data:`ROUNDS` rounds run in the order other,
-this, this, other, the median of those, and whether the two outputs are
-equal bit for bit. Then one summary line with, where ``cuobjdump`` is
-beside ``nvcc``, whether each dtype's kernel is the same SASS instruction
-for instruction (the (8, 8) instance of a templated kernel). Exit code 1
-when an output differs.
+(V1, the first K1 kept as a template) are each built with the flags of
+ops/_build.py into a library of their own; OTHER's ``vct_selective_scan``
+and this checkout's ``vct_selective_scan_tiled`` at (8, 8) run on the
+same inputs at the flagship's serving shapes: stage 1 (81, 72) and stage
+2 (49, 128), 6 forward and 4 reverse streams, b = 7,588, in bf16 and
+float32. Per shape it prints, as one JSON line, each side's CUDA-event
+medians from :data:`ROUNDS` rounds run in the order other, this, this,
+other, the median of those, and whether the two outputs are equal bit for
+bit. Then one summary line with, where ``cuobjdump`` is beside ``nvcc``,
+whether each dtype's kernel is the same SASS instruction for instruction
+(the (8, 8) instance of a templated kernel). So it shows whether V1 (8, 8),
+the baseline the sweeps time beside the main path's K1, is still the
+older K1. Exit code 1 when an output differs.
 """
 
 from __future__ import annotations
@@ -43,10 +46,10 @@ DTYPES = (torch.bfloat16, torch.float32)
 SASS_TAGS = {"bfloat16": "I13__nv_bfloat16", "float32": "If"}
 
 
-def _library(src: Path, name: str):
+def _library(src: Path, name: str, entry: str):
     """``src`` built alone into ``build/vit_cnn_tpu_torch/scan_ab_<name>
     .so`` with the port's nvcc flags: (its path, the library loaded with
-    K1's C signature)."""
+    ``entry``'s C signature)."""
     from ..ops import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -58,8 +61,9 @@ def _library(src: Path, name: str):
         raise RuntimeError("{}\n{}".format(" ".join(cmd),
                                            proc.stderr[-4000:]))
     lib = ctypes.CDLL(str(out))
-    lib.vct_selective_scan.argtypes = _build._SIGNATURES["vct_selective_scan"]
-    lib.vct_selective_scan.restype = ctypes.c_int
+    fn = getattr(lib, entry)
+    fn.argtypes = _build._SIGNATURES[entry]
+    fn.restype = ctypes.c_int
     return out, lib
 
 
@@ -94,8 +98,8 @@ def _k1_sass(funcs, dtype_name):
 
 
 def compare(other_lib, this_lib, label, ns, L, d, reverse, dtype) -> dict:
-    """Both libraries' K1 at one shape and dtype; see the module's
-    docstring."""
+    """OTHER's K1 and this checkout's V1 (8, 8) at one shape and dtype;
+    see the module's docstring."""
     from ..ops import _build
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -105,11 +109,14 @@ def compare(other_lib, this_lib, label, ns, L, d, reverse, dtype) -> dict:
 
     def run(lib, side):
         y = outs.setdefault(side, torch.empty_like(u))
-        code = lib.vct_selective_scan(
-            _build.dtype_code(u), u.data_ptr(), dt.data_ptr(), A.data_ptr(),
-            B.data_ptr(), C.data_ptr(), D.data_ptr(), y.data_ptr(), ns, L, d,
-            STATE, BAND, int(reverse), stream)
-        _build.check("vct_selective_scan ({})".format(side), code)
+        args = (_build.dtype_code(u), u.data_ptr(), dt.data_ptr(),
+                A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+                y.data_ptr(), ns, L, d, STATE, BAND, int(reverse))
+        if side == "other":
+            code = lib.vct_selective_scan(*args, stream)
+        else:
+            code = lib.vct_selective_scan_tiled(*args, 8, 8, stream)
+        _build.check("scan ({})".format(side), code)
 
     sides = {"other": other_lib, "this": this_lib}
     times = {"other": [], "this": []}
@@ -134,8 +141,9 @@ def main() -> int:
     this_src = Path(__file__).resolve().parent.parent / "csrc" / \
         "selective_scan.cu"
     print(card_line(), flush=True)
-    other_path, other_lib = _library(other_src, "other")
-    this_path, this_lib = _library(this_src, "this")
+    other_path, other_lib = _library(other_src, "other", "vct_selective_scan")
+    this_path, this_lib = _library(this_src, "this",
+                                   "vct_selective_scan_tiled")
     results = []
     for case in CASES:
         for dtype in DTYPES:
