@@ -15,8 +15,9 @@ the result lines:
    attention) at the flagship's serving shapes and one ragged batch (K1
    and K2 timed at both stages in bf16, K1 beside the first K1, V1's
    (8, 8) instance, with the ratio new / old), the
-   adjoints (K5-K7) at its train shapes (batch 1024 and a ragged 1001),
-   and the gradients of the four autograd Functions against autograd
+   adjoints (K5-K7) at its train shapes (batch 1024 and a ragged 1001;
+   K5 timed in bf16 at all four of a train step's launches, each printed
+   with its bound and share), and the gradients of the four autograd Functions against autograd
    through their plain versions.
 3. slice   — the port's ``--serve`` daemon on the Synthetic scene at
    Houston2013 size (349 x 1905, 144 + 1 bands, 15 classes) under the bf16
@@ -550,8 +551,8 @@ def phase_adjoints(rows):
         dn = str(dtype).split(".")[1]
         for (L, d) in ((81, 72), (49, 128)):
             for b in (TRAIN_BATCH, RAGGED):
-                main = dtype == torch.bfloat16 and b == TRAIN_BATCH \
-                    and L == 81
+                train = dtype == torch.bfloat16 and b == TRAIN_BATCH
+                main = train and L == 81
                 for ns, rev in ((6, False), (4, True)):
                     args = _scan_inputs(g, ns, L, d, 16, b, dtype)
                     cot = randn(ns, L, d, b).to(dtype)
@@ -563,15 +564,23 @@ def phase_adjoints(rows):
                         ns, L, d, b, " rev" if rev else ""), got, want, dn,
                         summed=range(6))
                     t = p = bound = None
-                    if main and not rev:
+                    if train:
+                        # each of the train step's four K5 launches
                         t = _median_ms(
                             lambda: selective_scan.selective_scan_backward(
                                 *args, cot, reverse=rev))
+                        bound = _bound(list(args) + [cot, *got], dn,
+                                       exps=ns * L * d * 16 * b)
+                        print("  K5 {} ns={} L={} d={} b={}: {:.3f} ms, "
+                              "bound {:.3f} ms ({}), share {:.1%}".format(
+                                  dn, ns, L, d, b, t, bound[0], bound[1],
+                                  bound[0] / t), flush=True)
+                    if main and not rev:
                         p = _median_ms(lambda: selective_scan.
                                        selective_scan_backward_reference(
                                            *args, cot, rev), reps=3)
-                        bound = _bound(list(args) + [cot, *got], dn,
-                                       exps=ns * L * d * 16 * b)
+                    else:
+                        t = bound = None
                     record("selective_scan_backward", err, dn, t, p, bound)
                     del args, cot, got, want
                 orders, inv, rev_rows = _tables(L)

@@ -230,9 +230,17 @@ def _scan_args(gen, lead, L, d, n, b, dtype):
     return u, dt, A, B, C, D
 
 
+# K5's edges: one-step and ragged 4-step chunks (L 1, 3, 5, 49, 81) in both
+# directions, channels that do not fill a block of 8 (d 5, 9, 72, 130),
+# lanes that do not fill a warp (b 1, 7, 33, 1001), n 1, 5 and 16
 SCAN_EDGES = [((), 9, 5, 16, 33, False), ((2,), 13, 9, 4, 1, True),
               ((3,), 81, 72, 16, 130, True), ((2,), 1, 8, 16, 7, False),
-              ((4,), 49, 128, 16, 64, False)]
+              ((4,), 49, 128, 16, 64, False), ((), 1, 5, 16, 33, False),
+              ((2,), 1, 9, 5, 7, True), ((), 3, 9, 1, 1, False),
+              ((2,), 3, 130, 16, 33, True), ((3,), 5, 72, 5, 7, False),
+              ((2,), 5, 5, 16, 1001, True), ((2,), 49, 130, 1, 1001, True),
+              ((), 49, 72, 16, 7, True), ((2,), 81, 9, 16, 1001, False),
+              ((1,), 81, 5, 5, 1, True)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

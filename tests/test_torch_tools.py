@@ -96,3 +96,48 @@ def test_kernel_ablation_reads_ptxas_usage():
         PTXAS, "selective_scan_fwd_kernel") == {name: dict(
             spill_stores=8, spill_loads=4, registers=96, smem=41984)}
     assert kernel_ablation.ptxas_usage(PTXAS, "dir_conv_silu_kernel") == {}
+
+
+@pytest.mark.parametrize("argv", [["scan", "a.cu"], ["conv", "a.cu", "b.cu"],
+                                  ["scan_bwd", "old/a.cu", "a.cu"]])
+def test_kernel_ablation_parses_kind_and_sources(argv):
+    kind, srcs = kernel_ablation.parse_args(argv)
+    assert kind == argv[0]
+    assert [p.name for p in srcs] == [a.split("/")[-1] for a in argv[1:]]
+    assert all(p.is_absolute() for p in srcs)
+
+
+@pytest.mark.parametrize("argv", [[], ["scan_bwd"], ["bwd", "a.cu"]])
+def test_kernel_ablation_refuses_other_arguments(argv):
+    with pytest.raises(SystemExit, match=r"scan\|conv\|scan_bwd A.cu"):
+        kernel_ablation.parse_args(argv)
+
+
+def test_kernel_ablation_scan_bwd_cases_are_the_train_launches():
+    """K5's cases are its four launches per train step: stage 1 (81
+    tokens, d 72) and stage 2 (49, 128), 6 forward and 4 reverse streams
+    each, batch 1024, run through the C entry point and its workspace."""
+    from vit_cnn_tpu_torch.ops import _build
+
+    got = sorted(case[1:] for case in kernel_ablation.SCAN_BWD_CASES)
+    want = sorted((ns, L, d, 1024, rev) for L, d in ((81, 72), (49, 128))
+                  for ns, rev in ((6, False), (4, True)))
+    assert got == want
+    entry, kernel = kernel_ablation.KINDS["scan_bwd"]
+    assert entry in _build._SIGNATURES
+    assert entry + "_workspace" in _build._WORKSPACE_SIGNATURES
+    assert kernel_ablation.CASES["scan_bwd"] == (
+        kernel_ablation.SCAN_BWD_CASES, kernel_ablation.scan_bwd_case)
+
+
+def test_kernel_ablation_holds_sums_to_their_largest_entry():
+    """K5's outputs are held to atol + rtol * max|want| per output, so an
+    entry near zero may keep the rounding of the large terms it sums."""
+    want = (torch.tensor([1000.0, 1e-3]), torch.tensor([2.0, -2.0]))
+    near = (torch.tensor([1000.05, 0.05]), torch.tensor([2.0, -2.0]))
+    err, ok = kernel_ablation.compare_summed(near, want, "float32")
+    assert ok and err == pytest.approx(0.05, abs=1e-3)
+    far = (near[0], torch.tensor([2.0, -1.99]))
+    assert not kernel_ablation.compare_summed(far, want, "float32")[1]
+    nan = (torch.tensor([1000.0, float("nan")]), want[1])
+    assert not kernel_ablation.compare_summed(nan, want, "float32")[1]

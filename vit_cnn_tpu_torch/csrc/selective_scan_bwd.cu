@@ -15,70 +15,115 @@
 //   dA = sum lam_t * h_{t-1} * dA_t * dt_t,   dD = sum g_t * u_t.
 //
 // Layout as K1: u, dt, g, du, ddt are (ns, L, d, b); B, C, dB, dC are
-// (ns, L, n, b); A (d, n) and D (d,) float32; b innermost.
+// (ns, L, n, b); A (d, n) and D (d,) float32; b innermost. All arithmetic
+// is float32.
 //
-// What bounds it on the H100: per (t, d, b) element the two sweeps below
-// take 48 exps (the forward's 16, three times) and about 14 bytes of
-// traffic in bf16, plus ~3 x 4 bytes of float32 scratch: far from the
-// memory bound. Measured at the flagship's train shapes, it is bound by
-// the latency of each thread's sequential time loop at 16 warps per SM
-// (the shared-memory trajectory allows two blocks): taking out the
-// per-step block reduction saves 5%, taking out sweep 1 8%, and the
-// exp's instruction count is what the fast __expf (ex2.approx, ~2e-6
-// relative error) already took out (21%).
+// What bounds it on the H100: per (t, d, b) element and state entry, the
+// two sweeps below take 3 exps (the forward, its recompute and the
+// adjoint's dA_t) and ~14 FP32 instructions, so the kernel is bound by
+// instruction issue at a few times the forward's 16-exp bound. Its
+// float32 scratch (the chunks' first states and the dB / dC partials)
+// moves ~2.3 GB at the flagship's first train launch, (6, 81, 72, 1024),
+// against ~0.1 GB of inputs and outputs.
 //
-// Design: K1's layout, one thread per (stream, d, b) with the 16-wide
-// state in float32 registers, a 32-sequence by 8-channel block. A full
-// (ns, L, d, n, b) float32 trajectory would take 2.3 GB at the train
-// shapes, so, as the Pallas kernel does, sweep 1 runs the forward and
-// keeps only h at the start of every kChunk-step chunk in float32 scratch;
-// sweep 2 walks the chunks against the scan direction, recomputes h
-// through each chunk into shared memory and runs the adjoint through it.
-// dB_t and dC_t sum over d, which spans several blocks: each block sums
-// its 8 channels in shared memory and writes one float32 partial per
-// (block row, t, n, b); dA and dD are summed over the block's lanes with
-// warp shuffles into per-block partials. A second pass (sum_partials)
-// adds the partials in a fixed order: no atomics, so every gradient is
-// the same from run to run.
+// Design (the first K5, PR 2, ran one channel a thread, loaded B and C as
+// 16 scalar global loads a step in each of its three passes, took each
+// exp as __expf, waited on memory at every step and summed dB and dC over
+// the block with two barriers a step: 9.2 ms at that launch):
+// - K1's tile: a thread owns R = 2 channels of one sequence, a block is 4
+//   warps x 32 sequences (8 channels), and B and C are staged once per
+//   block as float32 [step][lane][20] rows read with 128-bit loads, each
+//   staged value serving the thread's R channels. Staging runs a chunk
+//   ahead (double buffer, one barrier a chunk), u, dt and g a step (sweep
+//   1) or a chunk (sweep 2) ahead, kept raw until used.
+// - Every exp is one ex2.approx: A is pre-scaled by log2(e) in shared
+//   memory, and sum_i q[i] A[i] is taken against the scaled A and
+//   multiplied by ln 2 once.
+// - Sweep 1 runs the forward and keeps h at the start of every kChunk-step
+//   chunk (but the first, which is 0) in float32 scratch, laid out per
+//   block so each thread's 8 float4 are coalesced 128-bit accesses. It
+//   also sums dC_t = sum_d h_t g_t, which needs the forward state only, so
+//   sweep 2 needs h_{t-1} alone.
+// - Sweep 2 walks the chunks against the scan direction: it recomputes h
+//   through the chunk into shared memory (64 KB for 4 steps of 128
+//   threads x 32 states), then runs the adjoint through it, last step
+//   first. mu = dA_t lam_t is also the product the dA and ddt terms need,
+//   so the adjoint takes one exp per state entry.
+// - Cross-channel sums once per chunk: a thread adds its R channels in
+//   registers and leaves 16 sums a step in shared memory (dC in one of two
+//   halves of the state buffer in sweep 1; dB in the state slot the
+//   adjoint step just read, in sweep 2); after the chunk's barrier each
+//   thread adds the 4 warps' sums of one quad of states, in a fixed
+//   order, and writes one float32 partial per (block row, t, n, b). dA
+//   and dD stay in registers over the whole scan and are summed over the
+//   block's lanes with warp shuffles into per-block partials. A second
+//   pass (sum_partials) adds the partials in a fixed order: no atomics, so
+//   every gradient is the same from run to run.
+// - 107 KB of shared memory a block: two blocks (8 warps) per SM. The
+//   registers (h, mu, the dA sums and the chunk's u, dt, g: ~130 values)
+//   fit in the 255 that two 128-thread blocks leave a thread.
+// - n < 16 runs the 16-wide loop on zeros (A, B and C staged as 0), as K1.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kLanes = 32;   // sequences per block (one warp wide)
-constexpr int kRows = 8;     // channels per block (one warp each)
-constexpr int kMaxN = 16;    // largest state size compiled in
-constexpr int kChunk = 4;    // steps between stored boundary states
+constexpr int kLanes = 32;                 // sequences per block
+constexpr int kWarps = 4;                  // warps per block
+constexpr int kThreads = kLanes * kWarps;
+constexpr int kR = 2;                      // channels per thread
+constexpr int kChannels = kWarps * kR;     // channels per block
+constexpr int kMaxN = 16;                  // largest state size compiled in
+constexpr int kQuads = kR * kMaxN / 4;     // float4 of a thread's states
+constexpr int kRow = 20;                   // floats per staged (step, lane)
+constexpr int kChunk = 4;                  // steps per chunk
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+static_assert(kWarps * 4 == kMaxN, "one warp per quad of states");
 
-constexpr int kTile = kRows * kLanes;
+// dynamic shared memory: the chunk's states [kChunk][kQuads][kThreads]
+// float4; staged B and C [2 buffers][2][kChunk][kLanes][kRow]; A of the
+// block's channels [kChannels][kMaxN]
+constexpr size_t kStateFloats = size_t(kChunk) * kQuads * kThreads * 4;
+constexpr size_t kStageFloats = size_t(2) * 2 * kChunk * kLanes * kRow;
 constexpr size_t kSmemBytes =
-    sizeof(float) * (kChunk * kMaxN * kTile + 2 * kMaxN * kTile);
+    sizeof(float) * (kStateFloats + kStageFloats + kChannels * kMaxN);
 
 struct Work {            // carve of the float32 workspace
-  float *bounds, *pB, *pC, *pA, *pD;
+  float4* bounds;        // chunks' first states, per block
+  float *pB, *pC, *pA, *pD;
 };
 
 inline int n_chunks(int L) { return (L + kChunk - 1) / kChunk; }
+inline size_t lane_blocks(int b) { return (b + kLanes - 1) / kLanes; }
+inline size_t channel_blocks(int d) {
+  return (d + kChannels - 1) / kChannels;
+}
+
+inline size_t bound_floats(int ns, int L, int d, int b) {
+  return static_cast<size_t>(ns) * (n_chunks(L) - 1) * channel_blocks(d) *
+         lane_blocks(b) * kQuads * kThreads * 4;
+}
 
 inline Work carve(float* w, int ns, int L, int d, int n, int b) {
-  const size_t bx = (b + kLanes - 1) / kLanes, ty = (d + kRows - 1) / kRows;
+  const size_t plane = static_cast<size_t>(ns) * channel_blocks(d) * L * n * b;
   Work out;
-  out.bounds = w;
-  out.pB = out.bounds + static_cast<size_t>(ns) * n_chunks(L) * n * d * b;
-  out.pC = out.pB + static_cast<size_t>(ns) * ty * L * n * b;
-  out.pA = out.pC + static_cast<size_t>(ns) * ty * L * n * b;
-  out.pD = out.pA + static_cast<size_t>(ns) * bx * d * n;
+  out.bounds = reinterpret_cast<float4*>(w);
+  out.pB = w + bound_floats(ns, L, d, b);
+  out.pC = out.pB + plane;
+  out.pA = out.pC + plane;
+  out.pD = out.pA + static_cast<size_t>(ns) * lane_blocks(b) * d * n;
   return out;
 }
 
 inline size_t work_floats(int ns, int L, int d, int n, int b) {
-  const size_t bx = (b + kLanes - 1) / kLanes, ty = (d + kRows - 1) / kRows;
-  return static_cast<size_t>(ns) * n_chunks(L) * n * d * b +
-         2 * static_cast<size_t>(ns) * ty * L * n * b +
-         static_cast<size_t>(ns) * bx * d * (n + 1);
+  return bound_floats(ns, L, d, b) +
+         2 * static_cast<size_t>(ns) * channel_blocks(d) * L * n * b +
+         static_cast<size_t>(ns) * lane_blocks(b) * d * (n + 1);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kTile)
+// kPair: b is even, so B and C are staged two lanes a load (as K1)
+template <typename T, bool kPair>
+__global__ void __launch_bounds__(kThreads, 2)
 selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
                           const float* __restrict__ A,
                           const T* __restrict__ Bm, const T* __restrict__ Cm,
@@ -86,155 +131,414 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
                           const T* __restrict__ g, T* __restrict__ du,
                           T* __restrict__ ddt, Work w, int L, int d, int n,
                           int b, int reverse) {
-  extern __shared__ float smem[];
-  float* sH = smem;                          // [kChunk][kMaxN][kRows][kLanes]
-  float* sRB = sH + kChunk * kMaxN * kTile;  // [kMaxN][kRows][kLanes]
-  float* sRC = sRB + kMaxN * kTile;
+  using P = typename vct::PairOf<T>::type;
+  extern __shared__ __align__(16) float smem[];
+  float4* const sH = reinterpret_cast<float4*>(smem);
+  float* const sBC = smem + kStateFloats;
+  float* const sA = sBC + kStageFloats;
+  constexpr int kStep = kLanes * kRow;       // floats per staged step
+  constexpr int kMat = kChunk * kStep;       // floats of B (or C) a buffer
+  constexpr int kBuf = 2 * kMat;             // floats per buffer
+  constexpr int kSlot = kQuads * kThreads;   // float4 per state slot
 
   const int lane = threadIdx.x;
-  const int row = threadIdx.y;
-  const int tid = row * kLanes + lane;
-  const int bi = blockIdx.x * kLanes + lane;
-  const int di = blockIdx.y * kRows + row;
+  const int warp = threadIdx.y;
+  const int tid = warp * kLanes + lane;
+  const int b0 = blockIdx.x * kLanes;
+  const int bi = b0 + lane;
+  const int c0 = blockIdx.y * kChannels;     // the block's channels
+  const int cr = warp * kR;                  // the thread's, in them
   const size_t s = blockIdx.z;
-  const bool lane_ok = bi < b;
-  const bool active = lane_ok && di < d;
-
-  const size_t seq_d = static_cast<size_t>(d) * b;
-  const size_t seq_n = static_cast<size_t>(n) * b;
-  const size_t col = static_cast<size_t>(di) * b + bi;
-  const T* u_s = u + s * L * seq_d;
-  const T* dt_s = dt + s * L * seq_d;
-  const T* g_s = g + s * L * seq_d;
-  T* du_s = du + s * L * seq_d;
-  T* ddt_s = ddt + s * L * seq_d;
-  const T* B_s = Bm + s * L * seq_n;
-  const T* C_s = Cm + s * L * seq_n;
   const int nch = (L + kChunk - 1) / kChunk;
-  float* bnd_s = w.bounds + s * nch * n * seq_d;
+  const int last = nch - 1;
 
-  float a[kMaxN], h[kMaxN];
-#pragma unroll
-  for (int i = 0; i < kMaxN; ++i) {
-    a[i] = (di < d && i < n) ? A[di * n + i] : 0.f;
-    h[i] = 0.f;
+  const size_t step_d = static_cast<size_t>(d) * b * sizeof(T);
+  const size_t step_n = static_cast<size_t>(n) * b * sizeof(T);
+  const char* u_s = reinterpret_cast<const char*>(u) + s * L * step_d;
+  const char* dt_s = reinterpret_cast<const char*>(dt) + s * L * step_d;
+  const char* g_s = reinterpret_cast<const char*>(g) + s * L * step_d;
+  char* du_s = reinterpret_cast<char*>(du) + s * L * step_d;
+  char* ddt_s = reinterpret_cast<char*>(ddt) + s * L * step_d;
+  const size_t plane = static_cast<size_t>(L) * n * b;
+  float* const pB = w.pB + (s * gridDim.y + blockIdx.y) * plane;
+  float* const pC = w.pC + (s * gridDim.y + blockIdx.y) * plane;
+
+  for (int idx = tid; idx < kChannels * kMaxN; idx += kThreads) {
+    const int c = idx / kMaxN, i = idx % kMaxN;
+    sA[idx] = (c0 + c < d && i < n) ? A[(c0 + c) * n + i] * kLog2e : 0.f;
   }
-  const float dval = di < d ? Dv[di] : 0.f;
-  auto time_of = [&](int p) { return reverse ? L - 1 - p : p; };
-  auto sh = [&](int k, int i) -> float& {
-    return sH[(k * kMaxN + i) * kTile + tid];
+
+  // A masked lane or channel loads a valid element and uses it as 0.
+  bool ok[kR];
+  size_t col[kR];          // byte offset of this thread's channels in a step
+  float dv[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int di = c0 + cr + r;
+    ok[r] = bi < b && di < d;
+    col[r] = (static_cast<size_t>(min(di, d - 1)) * b + min(bi, b - 1)) *
+             sizeof(T);
+    dv[r] = di < d ? Dv[di] : 0.f;
+  }
+
+  // Staging, as K1: thread tid takes B (tid < 64) or C, lanes 2 m and
+  // 2 m + 1 (m = tid % 16), entries i0 .. i0 + 3 (i0 = 4 ((tid / 16) % 4));
+  // entries past n load entry n - 1 and are staged as 0.
+  const int m = tid % 16;
+  const int i0 = 4 * ((tid / 16) % 4);
+  const bool stages_B = tid < 64;          // warp-uniform
+  const char* src_s = reinterpret_cast<const char*>(stages_B ? Bm : Cm) +
+                      s * L * step_n;
+  unsigned src[4][2];
+  bool keep[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int row = min(i0 + e, n - 1);
+    const int l0 = kPair ? min(b0 + 2 * m, b - 2) : min(b0 + 2 * m, b - 1);
+    const int l1 = min(b0 + 2 * m + 1, b - 1);
+    src[e][0] = static_cast<unsigned>((row * b + l0) * sizeof(T));
+    src[e][1] = static_cast<unsigned>((row * b + l1) * sizeof(T));
+    keep[e] = i0 + e < n;
+  }
+  float* const stage = sBC + (stages_B ? 0 : kMat) + 2 * m * kRow + i0;
+
+  auto token = [&](int pos) { return reverse ? L - 1 - pos : pos; };
+  auto load_stage = [&](int pos, T (&v)[4][2]) {
+    const char* p = src_s + static_cast<size_t>(token(pos)) * step_n;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (kPair) {
+        const P x = *reinterpret_cast<const P*>(p + src[e][0]);
+        v[e][0] = x.x;
+        v[e][1] = x.y;
+      } else {
+        v[e][0] = *reinterpret_cast<const T*>(p + src[e][0]);
+        v[e][1] = *reinterpret_cast<const T*>(p + src[e][1]);
+      }
+    }
+  };
+  auto store_stage = [&](int buf, int k, const T (&v)[4][2]) {
+    float q[2][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      q[0][e] = keep[e] ? vct::to_f32(v[e][0]) : 0.f;
+      q[1][e] = keep[e] ? vct::to_f32(v[e][1]) : 0.f;
+    }
+    float* dst = stage + buf * kBuf + k * kStep;
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(q[0][0], q[0][1], q[0][2], q[0][3]);
+    *reinterpret_cast<float4*>(dst + kRow) =
+        make_float4(q[1][0], q[1][1], q[1][2], q[1][3]);
+  };
+  auto load_udg = [&](int pos, T (&uv)[kR], T (&dtv)[kR], T (&gv)[kR]) {
+    const size_t off = static_cast<size_t>(token(pos)) * step_d;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      uv[r] = *reinterpret_cast<const T*>(u_s + off + col[r]);
+      dtv[r] = *reinterpret_cast<const T*>(dt_s + off + col[r]);
+      gv[r] = *reinterpret_cast<const T*>(g_s + off + col[r]);
+    }
+  };
+  auto used = [&](int r, T x) { return ok[r] ? vct::to_f32(x) : 0.f; };
+  // the first state of chunk cc > 0, this thread's 8 float4
+  auto bound_of = [&](int cc) {
+    return w.bounds +
+           (((s * last + (cc - 1)) * gridDim.y + blockIdx.y) * gridDim.x +
+            blockIdx.x) * kSlot + tid;
+  };
+  // One chunk's cross-channel sums: slot k of `sums` holds every thread's
+  // 16 sums of step k as quads 0..3; this thread adds quad `warp` of the
+  // 4 warps at its lane, in a fixed order, into the partial plane.
+  auto reduce = [&](const float4* sums, int slot, int p0, int tc,
+                    float* part) {
+    const int i = 4 * warp;
+    for (int k = 0; k < tc; ++k) {
+      const float4* p = sums + k * slot + warp * kThreads + lane;
+      float4 v = p[0];
+#pragma unroll
+      for (int ww = 1; ww < kWarps; ++ww) {
+        const float4 x = p[ww * kLanes];
+        v.x += x.x;
+        v.y += x.y;
+        v.z += x.z;
+        v.w += x.w;
+      }
+      if (bi < b) {
+        float* o = part + static_cast<size_t>(token(p0 + k)) * n * b + bi;
+        if (i < n) o[static_cast<size_t>(i) * b] = v.x;
+        if (i + 1 < n) o[static_cast<size_t>(i + 1) * b] = v.y;
+        if (i + 2 < n) o[static_cast<size_t>(i + 2) * b] = v.z;
+        if (i + 3 < n) o[static_cast<size_t>(i + 3) * b] = v.w;
+      }
+    }
   };
 
-  // ---- sweep 1: forward, keeping h at the start of every chunk ----
-  for (int c = 0; c < nch; ++c) {
-    if (!active) break;
-    float* bnd = bnd_s + static_cast<size_t>(c) * n * seq_d + col;
+  // ---- sweep 1: the forward, keeping each chunk's first state; dC ----
+  float h[kR][kMaxN];
 #pragma unroll
-    for (int i = 0; i < kMaxN; ++i)
-      if (i < n) bnd[i * seq_d] = h[i];
-    const int p0 = c * kChunk, tc = min(kChunk, L - p0);
-    for (int k = 0; k < tc; ++k) {
-      const int t = time_of(p0 + k);
-      const float uv = vct::to_f32(u_s[t * seq_d + col]);
-      const float dtv = vct::to_f32(dt_s[t * seq_d + col]);
-      const float dtu = dtv * uv;
+  for (int r = 0; r < kR; ++r)
 #pragma unroll
-      for (int i = 0; i < kMaxN; ++i)
-        if (i < n)
-          h[i] = __expf(dtv * a[i]) * h[i] +
-                 dtu * vct::to_f32(B_s[t * seq_n + i * b + bi]);
+    for (int i = 0; i < kMaxN; ++i) h[r][i] = 0.f;
+
+  if (stages_B)
+    for (int k = 0; k < min(kChunk, L); ++k) {
+      T v[4][2];
+      load_stage(k, v);
+      store_stage(0, k, v);
     }
+  T un[kR], dtn[kR], gn[kR];
+  load_udg(0, un, dtn, gn);
+  __syncthreads();
+
+  for (int c = 0, buf = 0; c < nch; ++c, buf ^= 1) {
+    const int base = c * kChunk;
+    const int tc = min(kChunk, L - base);
+    const int tn = max(0, min(kChunk, L - base - kChunk));  // next chunk
+    if (c > 0) {
+      float4* o = bound_of(c);
+#pragma unroll
+      for (int q = 0; q < kQuads; ++q) {
+        const float* x = &h[q / 4][4 * (q % 4)];
+        o[q * kThreads] = make_float4(x[0], x[1], x[2], x[3]);
+      }
+    }
+    // dC sums of this chunk: half (c & 1) of the state buffer
+    float4* const sums = sH + (c & 1) * (kChunk * 4 * kThreads);
+    for (int k = 0; k < tc; ++k) {
+      const int pos = base + k;
+      T v[4][2];
+      if (stages_B && k < tn) load_stage(pos + kChunk, v);
+      float uv[kR], dtv[kR], gv[kR], dtu[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        uv[r] = used(r, un[r]);
+        dtv[r] = used(r, dtn[r]);
+        gv[r] = used(r, gn[r]);
+        dtu[r] = dtv[r] * uv[r];
+      }
+      if (pos + 1 < L) load_udg(pos + 1, un, dtn, gn);
+      const float* sb = sBC + buf * kBuf + k * kStep + lane * kRow;
+#pragma unroll
+      for (int q = 0; q < kMaxN / 4; ++q) {
+        const float4 b4 = *reinterpret_cast<const float4*>(sb + 4 * q);
+        const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
+        float aq[kR][4];
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          const float4 a4 =
+              *reinterpret_cast<const float4*>(&sA[(cr + r) * kMaxN + 4 * q]);
+          aq[r][0] = a4.x;
+          aq[r][1] = a4.y;
+          aq[r][2] = a4.z;
+          aq[r][3] = a4.w;
+        }
+        float dc[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * q + e;
+          dc[e] = 0.f;
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            h[r][i] = fmaf(vct::ex2_approx(dtv[r] * aq[r][e]), h[r][i],
+                           dtu[r] * bq[e]);
+            dc[e] = fmaf(h[r][i], gv[r], dc[e]);
+          }
+        }
+        sums[(k * 4 + q) * kThreads + tid] =
+            make_float4(dc[0], dc[1], dc[2], dc[3]);
+      }
+      if (stages_B && k < tn) store_stage(buf ^ 1, k, v);
+    }
+    __syncthreads();   // next chunk staged; this chunk's sums complete
+    reduce(sums, 4 * kThreads, base, tc, pC);
   }
+
+  // Sweep 2's first chunk (the last in scan order), B and C, into buffer
+  // 0: every read of sweep 1's buffers came before its last barrier.
+  for (int k = 0; k < L - last * kChunk; ++k) {
+    T v[4][2];
+    load_stage(last * kChunk + k, v);
+    store_stage(0, k, v);
+  }
+  __syncthreads();     // staged; sweep 1's last sums read
 
   // ---- sweep 2: chunks against the scan direction ----
-  float mu[kMaxN], dA_acc[kMaxN];   // mu = dA_{t+1} * lam_{t+1}
+  float mu[kR][kMaxN], gA[kR][kMaxN], gD[kR];   // mu = dA_{t+1} lam_{t+1}
 #pragma unroll
-  for (int i = 0; i < kMaxN; ++i) mu[i] = dA_acc[i] = 0.f;
-  float dD_acc = 0.f;
-  for (int c = nch - 1; c >= 0; --c) {
-    const int p0 = c * kChunk, tc = min(kChunk, L - p0);
-    // recompute h through the chunk: sh(k) holds h before step k
-    const float* bnd = bnd_s + static_cast<size_t>(c) * n * seq_d + col;
+  for (int r = 0; r < kR; ++r) {
+    gD[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kMaxN; ++i) h[i] = (active && i < n) ? bnd[i * seq_d] : 0.f;
-    for (int k = 0; k < tc; ++k) {
-      const int t = time_of(p0 + k);
-      const float uv = active ? vct::to_f32(u_s[t * seq_d + col]) : 0.f;
-      const float dtv = active ? vct::to_f32(dt_s[t * seq_d + col]) : 0.f;
-      const float dtu = dtv * uv;
-#pragma unroll
-      for (int i = 0; i < kMaxN; ++i) {
-        if (i < n) {
-          sh(k, i) = h[i];
-          const float bv = lane_ok ? vct::to_f32(B_s[t * seq_n + i * b + bi]) : 0.f;
-          h[i] = __expf(dtv * a[i]) * h[i] + dtu * bv;
-        }
-      }
-    }
-    // adjoint through the chunk, last step first; h holds h after it
-    for (int k = tc - 1; k >= 0; --k) {
-      const int t = time_of(p0 + k);
-      const size_t off = t * seq_d + col;
-      const float uv = active ? vct::to_f32(u_s[off]) : 0.f;
-      const float dtv = active ? vct::to_f32(dt_s[off]) : 0.f;
-      const float gv = active ? vct::to_f32(g_s[off]) : 0.f;
-      const float dtu = dtv * uv;
-      float S = 0.f, Tt = 0.f;
-#pragma unroll
-      for (int i = 0; i < kMaxN; ++i) {
-        if (i < n) {
-          const size_t bc = t * seq_n + i * b + bi;
-          const float bv = lane_ok ? vct::to_f32(B_s[bc]) : 0.f;
-          const float cv = lane_ok ? vct::to_f32(C_s[bc]) : 0.f;
-          const float h_prev = sh(k, i);
-          const float h_after = k == tc - 1 ? h[i] : sh(k + 1, i);
-          const float lam = cv * gv + mu[i];
-          const float dA = __expf(dtv * a[i]);
-          const float q = lam * h_prev * dA;
-          S += lam * bv;
-          Tt += q * a[i];
-          dA_acc[i] += q * dtv;
-          sRB[i * kTile + tid] = lam * dtu;
-          sRC[i * kTile + tid] = h_after * gv;
-          mu[i] = dA * lam;
-        }
-      }
-      if (active) {
-        ddt_s[off] = vct::from_f32<T>(Tt + uv * S);
-        du_s[off] = vct::from_f32<T>(dtv * S + dval * gv);
-      }
-      dD_acc += gv * uv;
-      __syncthreads();
-      // this block's 8 channels of dB_t and dC_t, one partial per block row
-      for (int idx = tid; idx < n * kLanes; idx += kTile) {
-        const int l = idx % kLanes, i = idx / kLanes;
-        const int bb = blockIdx.x * kLanes + l;
-        float sb = 0.f, sc = 0.f;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          sb += sRB[i * kTile + r * kLanes + l];
-          sc += sRC[i * kTile + r * kLanes + l];
-        }
-        if (bb < b) {
-          const size_t p = ((s * gridDim.y + blockIdx.y) * L + t) * seq_n +
-                           static_cast<size_t>(i) * b + bb;
-          w.pB[p] = sb;
-          w.pC[p] = sc;
-        }
-      }
-      __syncthreads();
-    }
+    for (int i = 0; i < kMaxN; ++i) mu[r][i] = gA[r][i] = 0.f;
   }
+  for (int c = last, buf = 0; c >= 0; --c, buf ^= 1) {
+    const int base = c * kChunk;
+    const int tc = min(kChunk, L - base);
+    T uc[kChunk][kR], dtc[kChunk][kR], gc[kChunk][kR];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k)
+      if (k < tc) load_udg(base + k, uc[k], dtc[k], gc[k]);
+    if (c > 0) {
+      const float4* p = bound_of(c);
+#pragma unroll
+      for (int q = 0; q < kQuads; ++q) {
+        const float4 x = p[q * kThreads];
+        float* y = &h[q / 4][4 * (q % 4)];
+        y[0] = x.x;
+        y[1] = x.y;
+        y[2] = x.z;
+        y[3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+#pragma unroll
+        for (int i = 0; i < kMaxN; ++i) h[r][i] = 0.f;
+    }
+    // the previous chunk's dB sums, left in its state slots
+    if (c < last)
+      reduce(sH, kSlot, base + kChunk, min(kChunk, L - base - kChunk), pB);
+    __syncthreads();
 
-  // dA, dD: sum over the block's 32 lanes (one warp per channel row)
+    const float* sb0 = sBC + buf * kBuf + lane * kRow;
+    // recompute: slot k holds h before step k
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      if (k >= tc) break;
+      float4* hs = sH + k * kSlot + tid;
+#pragma unroll
+      for (int q = 0; q < kQuads; ++q) {
+        const float* x = &h[q / 4][4 * (q % 4)];
+        hs[q * kThreads] = make_float4(x[0], x[1], x[2], x[3]);
+      }
+      float dtv[kR], dtu[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        dtv[r] = used(r, dtc[k][r]);
+        dtu[r] = dtv[r] * used(r, uc[k][r]);
+      }
+      const float* sb = sb0 + k * kStep;
+#pragma unroll
+      for (int q = 0; q < kMaxN / 4; ++q) {
+        const float4 b4 = *reinterpret_cast<const float4*>(sb + 4 * q);
+        const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          const float4 a4 =
+              *reinterpret_cast<const float4*>(&sA[(cr + r) * kMaxN + 4 * q]);
+          const float aq[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            h[r][4 * q + e] =
+                fmaf(vct::ex2_approx(dtv[r] * aq[e]), h[r][4 * q + e],
+                     dtu[r] * bq[e]);
+        }
+      }
+    }
+
+    // adjoint through the chunk, last step first, staging the next chunk
+#pragma unroll
+    for (int k = kChunk - 1; k >= 0; --k) {
+      if (k >= tc) continue;
+      T v[4][2];
+      if (c > 0) load_stage(base - kChunk + k, v);
+      float uv[kR], dtv[kR], gv[kR], dtu[kR], S[kR], Tt[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        uv[r] = used(r, uc[k][r]);
+        dtv[r] = used(r, dtc[k][r]);
+        gv[r] = used(r, gc[k][r]);
+        dtu[r] = dtv[r] * uv[r];
+        S[r] = Tt[r] = 0.f;
+      }
+      float4* hs = sH + k * kSlot + tid;
+      float4 hq[kQuads];
+#pragma unroll
+      for (int q = 0; q < kQuads; ++q) hq[q] = hs[q * kThreads];
+      const float* sb = sb0 + k * kStep;
+      const float* sc = sb + kMat;
+      float dbs[kMaxN];
+#pragma unroll
+      for (int q = 0; q < kMaxN / 4; ++q) {
+        const float4 b4 = *reinterpret_cast<const float4*>(sb + 4 * q);
+        const float4 c4 = *reinterpret_cast<const float4*>(sc + 4 * q);
+        const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
+        const float cq[4] = {c4.x, c4.y, c4.z, c4.w};
+        float aq[kR][4], hp[kR][4];
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          const float4 a4 =
+              *reinterpret_cast<const float4*>(&sA[(cr + r) * kMaxN + 4 * q]);
+          aq[r][0] = a4.x;
+          aq[r][1] = a4.y;
+          aq[r][2] = a4.z;
+          aq[r][3] = a4.w;
+          const float4 h4 = hq[r * 4 + q];
+          hp[r][0] = h4.x;
+          hp[r][1] = h4.y;
+          hp[r][2] = h4.z;
+          hp[r][3] = h4.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * q + e;
+          float db = 0.f;
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            const float lam = fmaf(cq[e], gv[r], mu[r][i]);
+            S[r] = fmaf(lam, bq[e], S[r]);
+            const float t1 = lam * vct::ex2_approx(dtv[r] * aq[r][e]);
+            const float qv = t1 * hp[r][e];     // lam h_{t-1} dA_t
+            mu[r][i] = t1;
+            Tt[r] = fmaf(qv, aq[r][e], Tt[r]);
+            gA[r][i] = fmaf(qv, dtv[r], gA[r][i]);
+            db = fmaf(lam, dtu[r], db);
+          }
+          dbs[i] = db;
+        }
+      }
+      // the slot is read: it takes this step's dB sums
+#pragma unroll
+      for (int q = 0; q < kMaxN / 4; ++q)
+        hs[q * kThreads] =
+            make_float4(dbs[4 * q], dbs[4 * q + 1], dbs[4 * q + 2],
+                        dbs[4 * q + 3]);
+      const size_t off = static_cast<size_t>(token(base + k)) * step_d;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        gD[r] = fmaf(gv[r], uv[r], gD[r]);
+        if (ok[r]) {
+          *reinterpret_cast<T*>(ddt_s + off + col[r]) =
+              vct::from_f32<T>(fmaf(uv[r], S[r], Tt[r] * kLn2));
+          *reinterpret_cast<T*>(du_s + off + col[r]) =
+              vct::from_f32<T>(fmaf(dtv[r], S[r], dv[r] * gv[r]));
+        }
+      }
+      if (c > 0) store_stage(buf ^ 1, k, v);
+    }
+    // a ragged chunk (the last, first here) stages the rest of the next
+    if (c > 0)
+      for (int k = tc; k < kChunk; ++k) {
+        T v[4][2];
+        load_stage(base - kChunk + k, v);
+        store_stage(buf ^ 1, k, v);
+      }
+    __syncthreads();   // next chunk staged; this chunk's dB sums complete
+  }
+  reduce(sH, kSlot, 0, min(kChunk, L), pB);
+
+  // dA, dD: sum over the block's 32 lanes
   const size_t blk = s * gridDim.x + blockIdx.x;
 #pragma unroll
-  for (int i = 0; i < kMaxN; ++i) {
-    const float v = vct::warp_sum(dA_acc[i]);
-    if (lane == 0 && di < d && i < n) w.pA[(blk * d + di) * n + i] = v;
+  for (int r = 0; r < kR; ++r) {
+    const int di = c0 + cr + r;
+#pragma unroll
+    for (int i = 0; i < kMaxN; ++i) {
+      const float v = vct::warp_sum(gA[r][i]);
+      if (lane == 0 && di < d && i < n) w.pA[(blk * d + di) * n + i] = v;
+    }
+    const float vd = vct::warp_sum(gD[r]);
+    if (lane == 0 && di < d) w.pD[blk * d + di] = vd;
   }
-  const float vd = vct::warp_sum(dD_acc);
-  if (lane == 0 && di < d) w.pD[blk * d + di] = vd;
 }
 
 template <typename T>
@@ -242,12 +546,14 @@ int launch(const void* u, const void* dt, const float* A, const void* B,
            const void* C, const float* D, const void* g, void* du, void* ddt,
            void* dB, void* dC, float* dA, float* dD, float* work, int ns,
            int L, int d, int n, int b, int reverse, cudaStream_t stream) {
-  cudaError_t err = vct::allow_smem(selective_scan_bwd_kernel<T>, kSmemBytes);
+  const auto kernel = b % 2 == 0 ? selective_scan_bwd_kernel<T, true>
+                                 : selective_scan_bwd_kernel<T, false>;
+  cudaError_t err = vct::allow_smem(kernel, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Work w = carve(work, ns, L, d, n, b);
-  dim3 block(kLanes, kRows);
-  dim3 grid((b + kLanes - 1) / kLanes, (d + kRows - 1) / kRows, ns);
-  selective_scan_bwd_kernel<T><<<grid, block, kSmemBytes, stream>>>(
+  dim3 block(kLanes, kWarps);
+  dim3 grid(lane_blocks(b), channel_blocks(d), ns);
+  kernel<<<grid, block, kSmemBytes, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(dt), A,
       static_cast<const T*>(B), static_cast<const T*>(C), D,
       static_cast<const T*>(g), static_cast<T*>(du), static_cast<T*>(ddt), w,
@@ -276,7 +582,7 @@ extern "C" int vct_selective_scan_bwd(int dtype, const void* u, const void* dt,
                                       void* dB, void* dC, float* dA, float* dD,
                                       float* work, int ns, int L, int d, int n,
                                       int b, int reverse, void* stream) {
-  if (n < 1 || n > kMaxN || ns > 65535 || (d + kRows - 1) / kRows > 65535)
+  if (n < 1 || n > kMaxN || ns > 65535 || channel_blocks(d) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ns == 0 || L == 0 || d == 0 || b == 0) {   // nothing to sum: zeros
