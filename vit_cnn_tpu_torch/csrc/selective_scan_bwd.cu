@@ -246,48 +246,81 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
            (((s * last + (cc - 1)) * gridDim.y + blockIdx.y) * gridDim.x +
             blockIdx.x) * kSlot + tid;
   };
-  // One chunk's cross-channel sums: slot k of `sums` holds every thread's
-  // 16 sums of step k as quads 0..3; this thread adds quad `warp` of the
-  // 4 warps at its lane, in a fixed order, into the partial plane.
-  auto reduce = [&](const float4* sums, int slot, int p0, int tc,
-                    float* part) {
+  // One chunk's cross-channel sums. State slot k holds every thread's 16
+  // dB sums of step k as quads 0..3 and its 16 dC sums as quads 4..7;
+  // thread (warp q, lane l) adds the 4 warps' quads q and 4 + q at lane l,
+  // in a fixed order, into the partial planes.
+  auto reduce = [&](int p0, int tc) {
     const int i = 4 * warp;
     for (int k = 0; k < tc; ++k) {
-      const float4* p = sums + k * slot + warp * kThreads + lane;
-      float4 v = p[0];
+      const float4* p = sH + k * kSlot + warp * kThreads + lane;
+      float4 vb = p[0], vc = p[4 * kThreads];
 #pragma unroll
       for (int ww = 1; ww < kWarps; ++ww) {
-        const float4 x = p[ww * kLanes];
-        v.x += x.x;
-        v.y += x.y;
-        v.z += x.z;
-        v.w += x.w;
+        const float4 xb = p[ww * kLanes], xc = p[4 * kThreads + ww * kLanes];
+        vb.x += xb.x;
+        vb.y += xb.y;
+        vb.z += xb.z;
+        vb.w += xb.w;
+        vc.x += xc.x;
+        vc.y += xc.y;
+        vc.z += xc.z;
+        vc.w += xc.w;
       }
       if (bi < b) {
-        float* o = part + static_cast<size_t>(token(p0 + k)) * n * b + bi;
-        if (i < n) o[static_cast<size_t>(i) * b] = v.x;
-        if (i + 1 < n) o[static_cast<size_t>(i + 1) * b] = v.y;
-        if (i + 2 < n) o[static_cast<size_t>(i + 2) * b] = v.z;
-        if (i + 3 < n) o[static_cast<size_t>(i + 3) * b] = v.w;
+        const size_t o = static_cast<size_t>(token(p0 + k)) * n * b + bi;
+        const float sb[4] = {vb.x, vb.y, vb.z, vb.w};
+        const float sc[4] = {vc.x, vc.y, vc.z, vc.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (i + e >= n) break;
+          pB[o + static_cast<size_t>(i + e) * b] = sb[e];
+          pC[o + static_cast<size_t>(i + e) * b] = sc[e];
+        }
       }
     }
   };
 
-  // ---- sweep 1: the forward, keeping each chunk's first state; dC ----
   float h[kR][kMaxN];
+  // h = the first state of chunk cc: 0, or this thread's 8 float4 of it
+  auto load_bound = [&](int cc) {
+    if (cc == 0) {
 #pragma unroll
-  for (int r = 0; r < kR; ++r)
+      for (int r = 0; r < kR; ++r)
 #pragma unroll
-    for (int i = 0; i < kMaxN; ++i) h[r][i] = 0.f;
+        for (int i = 0; i < kMaxN; ++i) h[r][i] = 0.f;
+      return;
+    }
+    const float4* p = bound_of(cc);
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q) {
+      const float4 x = p[q * kThreads];
+      float* y = &h[q / 4][4 * (q % 4)];
+      y[0] = x.x;
+      y[1] = x.y;
+      y[2] = x.z;
+      y[3] = x.w;
+    }
+  };
 
+  // ---- sweep 1: the forward, keeping each chunk's first state ----
+  load_bound(0);
   if (stages_B)
     for (int k = 0; k < min(kChunk, L); ++k) {
       T v[4][2];
       load_stage(k, v);
       store_stage(0, k, v);
     }
-  T un[kR], dtn[kR], gn[kR];
-  load_udg(0, un, dtn, gn);
+  T un[kR], dtn[kR];
+  auto load_ud = [&](int pos) {
+    const size_t off = static_cast<size_t>(token(pos)) * step_d;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      un[r] = *reinterpret_cast<const T*>(u_s + off + col[r]);
+      dtn[r] = *reinterpret_cast<const T*>(dt_s + off + col[r]);
+    }
+  };
+  load_ud(0);
   __syncthreads();
 
   for (int c = 0, buf = 0; c < nch; ++c, buf ^= 1) {
@@ -302,55 +335,37 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
         o[q * kThreads] = make_float4(x[0], x[1], x[2], x[3]);
       }
     }
-    // dC sums of this chunk: half (c & 1) of the state buffer
-    float4* const sums = sH + (c & 1) * (kChunk * 4 * kThreads);
     for (int k = 0; k < tc; ++k) {
       const int pos = base + k;
       T v[4][2];
       if (stages_B && k < tn) load_stage(pos + kChunk, v);
-      float uv[kR], dtv[kR], gv[kR], dtu[kR];
+      float dtv[kR], dtu[kR];
 #pragma unroll
       for (int r = 0; r < kR; ++r) {
-        uv[r] = used(r, un[r]);
         dtv[r] = used(r, dtn[r]);
-        gv[r] = used(r, gn[r]);
-        dtu[r] = dtv[r] * uv[r];
+        dtu[r] = dtv[r] * used(r, un[r]);
       }
-      if (pos + 1 < L) load_udg(pos + 1, un, dtn, gn);
+      if (pos + 1 < L) load_ud(pos + 1);
       const float* sb = sBC + buf * kBuf + k * kStep + lane * kRow;
 #pragma unroll
       for (int q = 0; q < kMaxN / 4; ++q) {
         const float4 b4 = *reinterpret_cast<const float4*>(sb + 4 * q);
         const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
-        float aq[kR][4];
 #pragma unroll
         for (int r = 0; r < kR; ++r) {
           const float4 a4 =
               *reinterpret_cast<const float4*>(&sA[(cr + r) * kMaxN + 4 * q]);
-          aq[r][0] = a4.x;
-          aq[r][1] = a4.y;
-          aq[r][2] = a4.z;
-          aq[r][3] = a4.w;
-        }
-        float dc[4];
+          const float aq[4] = {a4.x, a4.y, a4.z, a4.w};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * q + e;
-          dc[e] = 0.f;
-#pragma unroll
-          for (int r = 0; r < kR; ++r) {
-            h[r][i] = fmaf(vct::ex2_approx(dtv[r] * aq[r][e]), h[r][i],
-                           dtu[r] * bq[e]);
-            dc[e] = fmaf(h[r][i], gv[r], dc[e]);
-          }
+          for (int e = 0; e < 4; ++e)
+            h[r][4 * q + e] =
+                fmaf(vct::ex2_approx(dtv[r] * aq[e]), h[r][4 * q + e],
+                     dtu[r] * bq[e]);
         }
-        sums[(k * 4 + q) * kThreads + tid] =
-            make_float4(dc[0], dc[1], dc[2], dc[3]);
       }
       if (stages_B && k < tn) store_stage(buf ^ 1, k, v);
     }
-    __syncthreads();   // next chunk staged; this chunk's sums complete
-    reduce(sums, 4 * kThreads, base, tc, pC);
+    __syncthreads();   // next chunk staged; this chunk's reads done
   }
 
   // Sweep 2's first chunk (the last in scan order), B and C, into buffer
@@ -360,7 +375,8 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
     load_stage(last * kChunk + k, v);
     store_stage(0, k, v);
   }
-  __syncthreads();     // staged; sweep 1's last sums read
+  load_bound(last);
+  __syncthreads();
 
   // ---- sweep 2: chunks against the scan direction ----
   float mu[kR][kMaxN], gA[kR][kMaxN], gD[kR];   // mu = dA_{t+1} lam_{t+1}
@@ -377,39 +393,15 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
 #pragma unroll
     for (int k = 0; k < kChunk; ++k)
       if (k < tc) load_udg(base + k, uc[k], dtc[k], gc[k]);
-    if (c > 0) {
-      const float4* p = bound_of(c);
-#pragma unroll
-      for (int q = 0; q < kQuads; ++q) {
-        const float4 x = p[q * kThreads];
-        float* y = &h[q / 4][4 * (q % 4)];
-        y[0] = x.x;
-        y[1] = x.y;
-        y[2] = x.z;
-        y[3] = x.w;
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < kR; ++r)
-#pragma unroll
-        for (int i = 0; i < kMaxN; ++i) h[r][i] = 0.f;
-    }
-    // the previous chunk's dB sums, left in its state slots
-    if (c < last)
-      reduce(sH, kSlot, base + kChunk, min(kChunk, L - base - kChunk), pB);
+    // the previous chunk's sums, left in its state slots
+    if (c < last) reduce(base + kChunk, min(kChunk, L - base - kChunk));
     __syncthreads();
 
     const float* sb0 = sBC + buf * kBuf + lane * kRow;
-    // recompute: slot k holds h before step k
+    // recompute: slot k holds h after step k
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
       if (k >= tc) break;
-      float4* hs = sH + k * kSlot + tid;
-#pragma unroll
-      for (int q = 0; q < kQuads; ++q) {
-        const float* x = &h[q / 4][4 * (q % 4)];
-        hs[q * kThreads] = make_float4(x[0], x[1], x[2], x[3]);
-      }
       float dtv[kR], dtu[kR];
 #pragma unroll
       for (int r = 0; r < kR; ++r) {
@@ -433,7 +425,15 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
                      dtu[r] * bq[e]);
         }
       }
+      float4* hs = sH + k * kSlot + tid;
+#pragma unroll
+      for (int q = 0; q < kQuads; ++q) {
+        const float* x = &h[q / 4][4 * (q % 4)];
+        hs[q * kThreads] = make_float4(x[0], x[1], x[2], x[3]);
+      }
     }
+    // h is free until the next chunk: read its first state meanwhile
+    if (c > 0) load_bound(c - 1);
 
     // adjoint through the chunk, last step first, staging the next chunk
 #pragma unroll
@@ -456,14 +456,14 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
       for (int q = 0; q < kQuads; ++q) hq[q] = hs[q * kThreads];
       const float* sb = sb0 + k * kStep;
       const float* sc = sb + kMat;
-      float dbs[kMaxN];
+      float dbs[kMaxN], dcs[kMaxN];
 #pragma unroll
       for (int q = 0; q < kMaxN / 4; ++q) {
         const float4 b4 = *reinterpret_cast<const float4*>(sb + 4 * q);
         const float4 c4 = *reinterpret_cast<const float4*>(sc + 4 * q);
         const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
         const float cq[4] = {c4.x, c4.y, c4.z, c4.w};
-        float aq[kR][4], hp[kR][4];
+        float aq[kR][4], ht[kR][4];
 #pragma unroll
         for (int r = 0; r < kR; ++r) {
           const float4 a4 =
@@ -473,35 +473,39 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
           aq[r][2] = a4.z;
           aq[r][3] = a4.w;
           const float4 h4 = hq[r * 4 + q];
-          hp[r][0] = h4.x;
-          hp[r][1] = h4.y;
-          hp[r][2] = h4.z;
-          hp[r][3] = h4.w;
+          ht[r][0] = h4.x;
+          ht[r][1] = h4.y;
+          ht[r][2] = h4.z;
+          ht[r][3] = h4.w;
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = 4 * q + e;
-          float db = 0.f;
+          float db = 0.f, dc = 0.f;
 #pragma unroll
           for (int r = 0; r < kR; ++r) {
             const float lam = fmaf(cq[e], gv[r], mu[r][i]);
             S[r] = fmaf(lam, bq[e], S[r]);
-            const float t1 = lam * vct::ex2_approx(dtv[r] * aq[r][e]);
-            const float qv = t1 * hp[r][e];     // lam h_{t-1} dA_t
-            mu[r][i] = t1;
+            // lam h_{t-1} dA_t, with dA_t h_{t-1} = h_t - dt_t u_t B_t
+            const float qv = lam * fmaf(-dtu[r], bq[e], ht[r][e]);
+            mu[r][i] = lam * vct::ex2_approx(dtv[r] * aq[r][e]);
             Tt[r] = fmaf(qv, aq[r][e], Tt[r]);
             gA[r][i] = fmaf(qv, dtv[r], gA[r][i]);
             db = fmaf(lam, dtu[r], db);
+            dc = fmaf(ht[r][e], gv[r], dc);
           }
           dbs[i] = db;
+          dcs[i] = dc;
         }
       }
-      // the slot is read: it takes this step's dB sums
+      // the slot is read: it takes this step's dB and dC sums
 #pragma unroll
-      for (int q = 0; q < kMaxN / 4; ++q)
-        hs[q * kThreads] =
-            make_float4(dbs[4 * q], dbs[4 * q + 1], dbs[4 * q + 2],
-                        dbs[4 * q + 3]);
+      for (int q = 0; q < kMaxN / 4; ++q) {
+        hs[q * kThreads] = make_float4(dbs[4 * q], dbs[4 * q + 1],
+                                       dbs[4 * q + 2], dbs[4 * q + 3]);
+        hs[(4 + q) * kThreads] = make_float4(dcs[4 * q], dcs[4 * q + 1],
+                                             dcs[4 * q + 2], dcs[4 * q + 3]);
+      }
       const size_t off = static_cast<size_t>(token(base + k)) * step_d;
 #pragma unroll
       for (int r = 0; r < kR; ++r) {
@@ -522,9 +526,9 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
         load_stage(base - kChunk + k, v);
         store_stage(buf ^ 1, k, v);
       }
-    __syncthreads();   // next chunk staged; this chunk's dB sums complete
+    __syncthreads();   // next chunk staged; this chunk's sums complete
   }
-  reduce(sH, kSlot, 0, min(kChunk, L), pB);
+  reduce(0, min(kChunk, L));
 
   // dA, dD: sum over the block's 32 lanes
   const size_t blk = s * gridDim.x + blockIdx.x;
