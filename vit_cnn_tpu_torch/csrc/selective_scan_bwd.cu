@@ -90,7 +90,8 @@ constexpr size_t kSmemBytes =
 
 struct Work {            // carve of the float32 workspace
   float4* bounds;        // chunks' first states, per block
-  float *pB, *pC, *pA, *pD;
+  float4 *pB, *pC;       // dB, dC partials [ns][block row][L][4][b] float4
+  float *pA, *pD;
 };
 
 inline int n_chunks(int L) { return (L + kChunk - 1) / kChunk; }
@@ -105,20 +106,52 @@ inline size_t bound_floats(int ns, int L, int d, int b) {
 }
 
 inline Work carve(float* w, int ns, int L, int d, int n, int b) {
-  const size_t plane = static_cast<size_t>(ns) * channel_blocks(d) * L * n * b;
+  const size_t plane = static_cast<size_t>(ns) * channel_blocks(d) * L * 4 * b;
   Work out;
   out.bounds = reinterpret_cast<float4*>(w);
-  out.pB = w + bound_floats(ns, L, d, b);
+  out.pB = reinterpret_cast<float4*>(w + bound_floats(ns, L, d, b));
   out.pC = out.pB + plane;
-  out.pA = out.pC + plane;
+  out.pA = reinterpret_cast<float*>(out.pC + plane);
   out.pD = out.pA + static_cast<size_t>(ns) * lane_blocks(b) * d * n;
   return out;
 }
 
 inline size_t work_floats(int ns, int L, int d, int n, int b) {
   return bound_floats(ns, L, d, b) +
-         2 * static_cast<size_t>(ns) * channel_blocks(d) * L * n * b +
+         2 * static_cast<size_t>(ns) * channel_blocks(d) * L * kMaxN * b +
          static_cast<size_t>(ns) * lane_blocks(b) * d * (n + 1);
+}
+
+// Second pass of dB and dC: out[s][t][4 q + e][b] is the sum over the
+// partial planes p, in order, of part[s][p][t][q][b] component e
+// (blockIdx.z 0: dB, 1: dC); one thread per (t, q, b).
+template <typename T>
+__global__ void sum_quads_kernel(const float4* __restrict__ pB,
+                                 const float4* __restrict__ pC,
+                                 T* __restrict__ dB, T* __restrict__ dC,
+                                 int parts, int L, int n, int b) {
+  const long long m = static_cast<long long>(L) * 4 * b;
+  const long long j =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= m) return;
+  const int q = static_cast<int>((j / b) % 4);
+  if (4 * q >= n) return;
+  const size_t s = blockIdx.y;
+  const float4* src = (blockIdx.z ? pC : pB) + s * parts * m + j;
+  float4 acc = src[0];
+  for (int p = 1; p < parts; ++p) {
+    const float4 x = src[static_cast<size_t>(p) * m];
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  const long long t = j / (4LL * b), bb = j % b;
+  T* out = (blockIdx.z ? dC : dB) + ((s * L + t) * n + 4 * q) * b + bb;
+  const float v[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (4 * q + e < n) out[static_cast<size_t>(e) * b] = vct::from_f32<T>(v[e]);
 }
 
 // kPair: b is even, so B and C are staged two lanes a load (as K1)
@@ -159,9 +192,9 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   const char* g_s = reinterpret_cast<const char*>(g) + s * L * step_d;
   char* du_s = reinterpret_cast<char*>(du) + s * L * step_d;
   char* ddt_s = reinterpret_cast<char*>(ddt) + s * L * step_d;
-  const size_t plane = static_cast<size_t>(L) * n * b;
-  float* const pB = w.pB + (s * gridDim.y + blockIdx.y) * plane;
-  float* const pC = w.pC + (s * gridDim.y + blockIdx.y) * plane;
+  const size_t plane = static_cast<size_t>(L) * 4 * b;   // float4
+  float4* const pB = w.pB + (s * gridDim.y + blockIdx.y) * plane;
+  float4* const pC = w.pC + (s * gridDim.y + blockIdx.y) * plane;
 
   for (int idx = tid; idx < kChannels * kMaxN; idx += kThreads) {
     const int c = idx / kMaxN, i = idx % kMaxN;
@@ -252,7 +285,9 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   // in a fixed order, into the partial planes.
   auto reduce = [&](int p0, int tc) {
     const int i = 4 * warp;
-    for (int k = 0; k < tc; ++k) {
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      if (k >= tc) break;
       const float4* p = sH + k * kSlot + warp * kThreads + lane;
       float4 vb = p[0], vc = p[4 * kThreads];
 #pragma unroll
@@ -267,16 +302,11 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
         vc.z += xc.z;
         vc.w += xc.w;
       }
-      if (bi < b) {
-        const size_t o = static_cast<size_t>(token(p0 + k)) * n * b + bi;
-        const float sb[4] = {vb.x, vb.y, vb.z, vb.w};
-        const float sc[4] = {vc.x, vc.y, vc.z, vc.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (i + e >= n) break;
-          pB[o + static_cast<size_t>(i + e) * b] = sb[e];
-          pC[o + static_cast<size_t>(i + e) * b] = sc[e];
-        }
+      if (bi < b && i < n) {
+        const size_t o =
+            (static_cast<size_t>(token(p0 + k)) * 4 + warp) * b + bi;
+        pB[o] = vb;
+        pC[o] = vc;
       }
     }
   };
@@ -376,6 +406,11 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
     store_stage(0, k, v);
   }
   load_bound(last);
+  T uc[kChunk][kR], dtc[kChunk][kR], gc[kChunk][kR];   // the chunk's u, dt, g
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k)
+    if (last * kChunk + k < L)
+      load_udg(last * kChunk + k, uc[k], dtc[k], gc[k]);
   __syncthreads();
 
   // ---- sweep 2: chunks against the scan direction ----
@@ -389,10 +424,6 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   for (int c = last, buf = 0; c >= 0; --c, buf ^= 1) {
     const int base = c * kChunk;
     const int tc = min(kChunk, L - base);
-    T uc[kChunk][kR], dtc[kChunk][kR], gc[kChunk][kR];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k)
-      if (k < tc) load_udg(base + k, uc[k], dtc[k], gc[k]);
     // the previous chunk's sums, left in its state slots
     if (c < last) reduce(base + kChunk, min(kChunk, L - base - kChunk));
     __syncthreads();
@@ -432,8 +463,15 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
         hs[q * kThreads] = make_float4(x[0], x[1], x[2], x[3]);
       }
     }
-    // h is free until the next chunk: read its first state meanwhile
-    if (c > 0) load_bound(c - 1);
+    // h is free until the next chunk: its first state, u, dt and g are
+    // read during the adjoint
+    T nu[kChunk][kR], ndt[kChunk][kR], ng[kChunk][kR];   // next chunk's
+    if (c > 0) {
+      load_bound(c - 1);
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k)
+        load_udg(base - kChunk + k, nu[k], ndt[k], ng[k]);
+    }
 
     // adjoint through the chunk, last step first, staging the next chunk
 #pragma unroll
@@ -450,20 +488,18 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
         dtu[r] = dtv[r] * uv[r];
         S[r] = Tt[r] = 0.f;
       }
+      // slot k: h_t of state quad q of channel r at quad 4 r + q; each
+      // pair of quads, once read, takes the step's dB and dC sums
       float4* hs = sH + k * kSlot + tid;
-      float4 hq[kQuads];
-#pragma unroll
-      for (int q = 0; q < kQuads; ++q) hq[q] = hs[q * kThreads];
       const float* sb = sb0 + k * kStep;
       const float* sc = sb + kMat;
-      float dbs[kMaxN], dcs[kMaxN];
 #pragma unroll
       for (int q = 0; q < kMaxN / 4; ++q) {
         const float4 b4 = *reinterpret_cast<const float4*>(sb + 4 * q);
         const float4 c4 = *reinterpret_cast<const float4*>(sc + 4 * q);
         const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
         const float cq[4] = {c4.x, c4.y, c4.z, c4.w};
-        float aq[kR][4], ht[kR][4];
+        float aq[kR][4], ht[kR][4], db[4], dc[4];
 #pragma unroll
         for (int r = 0; r < kR; ++r) {
           const float4 a4 =
@@ -472,7 +508,7 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
           aq[r][1] = a4.y;
           aq[r][2] = a4.z;
           aq[r][3] = a4.w;
-          const float4 h4 = hq[r * 4 + q];
+          const float4 h4 = hs[(4 * r + q) * kThreads];
           ht[r][0] = h4.x;
           ht[r][1] = h4.y;
           ht[r][2] = h4.z;
@@ -481,7 +517,7 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = 4 * q + e;
-          float db = 0.f, dc = 0.f;
+          db[e] = dc[e] = 0.f;
 #pragma unroll
           for (int r = 0; r < kR; ++r) {
             const float lam = fmaf(cq[e], gv[r], mu[r][i]);
@@ -491,20 +527,12 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
             mu[r][i] = lam * vct::ex2_approx(dtv[r] * aq[r][e]);
             Tt[r] = fmaf(qv, aq[r][e], Tt[r]);
             gA[r][i] = fmaf(qv, dtv[r], gA[r][i]);
-            db = fmaf(lam, dtu[r], db);
-            dc = fmaf(ht[r][e], gv[r], dc);
+            db[e] = fmaf(lam, dtu[r], db[e]);
+            dc[e] = fmaf(ht[r][e], gv[r], dc[e]);
           }
-          dbs[i] = db;
-          dcs[i] = dc;
         }
-      }
-      // the slot is read: it takes this step's dB and dC sums
-#pragma unroll
-      for (int q = 0; q < kMaxN / 4; ++q) {
-        hs[q * kThreads] = make_float4(dbs[4 * q], dbs[4 * q + 1],
-                                       dbs[4 * q + 2], dbs[4 * q + 3]);
-        hs[(4 + q) * kThreads] = make_float4(dcs[4 * q], dcs[4 * q + 1],
-                                             dcs[4 * q + 2], dcs[4 * q + 3]);
+        hs[q * kThreads] = make_float4(db[0], db[1], db[2], db[3]);
+        hs[(4 + q) * kThreads] = make_float4(dc[0], dc[1], dc[2], dc[3]);
       }
       const size_t off = static_cast<size_t>(token(base + k)) * step_d;
 #pragma unroll
@@ -527,6 +555,14 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
         store_stage(buf ^ 1, k, v);
       }
     __syncthreads();   // next chunk staged; this chunk's sums complete
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k)
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        uc[k][r] = nu[k][r];
+        dtc[k][r] = ndt[k][r];
+        gc[k][r] = ng[k][r];
+      }
   }
   reduce(0, min(kChunk, L));
 
@@ -562,9 +598,11 @@ int launch(const void* u, const void* dt, const float* A, const void* B,
       static_cast<const T*>(B), static_cast<const T*>(C), D,
       static_cast<const T*>(g), static_cast<T*>(du), static_cast<T*>(ddt), w,
       L, d, n, b, reverse);
-  const long long bn = static_cast<long long>(L) * n * b;
-  vct::sum_partials<T>(w.pB, static_cast<T*>(dB), ns, grid.y, bn, stream);
-  vct::sum_partials<T>(w.pC, static_cast<T*>(dC), ns, grid.y, bn, stream);
+  const long long m = static_cast<long long>(L) * 4 * b;
+  sum_quads_kernel<T><<<dim3(static_cast<unsigned>((m + 255) / 256), ns, 2),
+                        256, 0, stream>>>(w.pB, w.pC, static_cast<T*>(dB),
+                                          static_cast<T*>(dC), grid.y, L, n,
+                                          b);
   vct::sum_partials<float>(w.pA, dA, 1, ns * grid.x,
                            static_cast<long long>(d) * n, stream);
   vct::sum_partials<float>(w.pD, dD, 1, ns * grid.x, d, stream);
