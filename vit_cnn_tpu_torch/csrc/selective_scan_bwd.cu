@@ -341,16 +341,21 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
       load_stage(k, v);
       store_stage(0, k, v);
     }
-  T un[kR], dtn[kR];
-  auto load_ud = [&](int pos) {
-    const size_t off = static_cast<size_t>(token(pos)) * step_d;
+  // u and dt of the chunk starting at `base`, raw, read a chunk ahead
+  auto load_ud = [&](int base, T (&uu)[kChunk][kR], T (&dd)[kChunk][kR]) {
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      un[r] = *reinterpret_cast<const T*>(u_s + off + col[r]);
-      dtn[r] = *reinterpret_cast<const T*>(dt_s + off + col[r]);
+    for (int k = 0; k < kChunk; ++k) {
+      if (base + k >= L) break;
+      const size_t off = static_cast<size_t>(token(base + k)) * step_d;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        uu[k][r] = *reinterpret_cast<const T*>(u_s + off + col[r]);
+        dd[k][r] = *reinterpret_cast<const T*>(dt_s + off + col[r]);
+      }
     }
   };
-  load_ud(0);
+  T su[kChunk][kR], sdt[kChunk][kR];
+  load_ud(0, su, sdt);
   __syncthreads();
 
   for (int c = 0, buf = 0; c < nch; ++c, buf ^= 1) {
@@ -365,17 +370,20 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
         o[q * kThreads] = make_float4(x[0], x[1], x[2], x[3]);
       }
     }
-    for (int k = 0; k < tc; ++k) {
+    T nu[kChunk][kR], ndt[kChunk][kR];     // the next chunk's
+    load_ud(base + kChunk, nu, ndt);
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      if (k >= tc) break;
       const int pos = base + k;
       T v[4][2];
       if (stages_B && k < tn) load_stage(pos + kChunk, v);
       float dtv[kR], dtu[kR];
 #pragma unroll
       for (int r = 0; r < kR; ++r) {
-        dtv[r] = used(r, dtn[r]);
-        dtu[r] = dtv[r] * used(r, un[r]);
+        dtv[r] = used(r, sdt[k][r]);
+        dtu[r] = dtv[r] * used(r, su[k][r]);
       }
-      if (pos + 1 < L) load_ud(pos + 1);
       const float* sb = sBC + buf * kBuf + k * kStep + lane * kRow;
 #pragma unroll
       for (int q = 0; q < kMaxN / 4; ++q) {
@@ -396,6 +404,13 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
       if (stages_B && k < tn) store_stage(buf ^ 1, k, v);
     }
     __syncthreads();   // next chunk staged; this chunk's reads done
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k)
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        su[k][r] = nu[k][r];
+        sdt[k][r] = ndt[k][r];
+      }
   }
 
   // Sweep 2's first chunk (the last in scan order), B and C, into buffer
