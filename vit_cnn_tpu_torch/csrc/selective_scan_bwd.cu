@@ -18,13 +18,15 @@
 // (ns, L, n, b); A (d, n) and D (d,) float32; b innermost. All arithmetic
 // is float32.
 //
-// What bounds it on the H100: per (t, d, b) element and state entry, the
-// two sweeps below take 3 exps (the forward, its recompute and the
-// adjoint's dA_t) and ~14 FP32 instructions, so the kernel is bound by
-// instruction issue at a few times the forward's 16-exp bound. Its
-// float32 scratch (the chunks' first states and the dB / dC partials)
-// moves ~2.3 GB at the flagship's first train launch, (6, 81, 72, 1024),
-// against ~0.1 GB of inputs and outputs.
+// What bounds it on the H100: per (t, d, b) element and state entry it
+// takes 3 exps (the forward, its recompute and the adjoint's dA_t) and
+// ~16 FP32 instructions, so its arithmetic is bound by the special-
+// function units at 3x the forward's 16-exp bound. Its float32 scratch
+// moves more bytes than its inputs and outputs: at the flagship's first
+// train launch, (6, 81, 72, 1024), 566 MB of chunk states written and
+// read back and 573 MB of dB / dC partials written and summed, against
+// 0.42 GB of bf16 inputs and outputs. On the card (PERF.md, PR 8) the
+// kernel without its scratch traffic takes about two thirds of its time.
 //
 // Design (the first K5, PR 2, ran one channel a thread, loaded B and C as
 // 16 scalar global loads a step in each of its three passes, took each
@@ -34,34 +36,35 @@
 //   warps x 32 sequences (8 channels), and B and C are staged once per
 //   block as float32 [step][lane][20] rows read with 128-bit loads, each
 //   staged value serving the thread's R channels. Staging runs a chunk
-//   ahead (double buffer, one barrier a chunk), u, dt and g a step (sweep
-//   1) or a chunk (sweep 2) ahead, kept raw until used.
+//   ahead (double buffer, one barrier a chunk); u, dt and g are read a
+//   chunk ahead too, and every loaded value stays as loaded until used.
 // - Every exp is one ex2.approx: A is pre-scaled by log2(e) in shared
 //   memory, and sum_i q[i] A[i] is taken against the scaled A and
 //   multiplied by ln 2 once.
 // - Sweep 1 runs the forward and keeps h at the start of every kChunk-step
 //   chunk (but the first, which is 0) in float32 scratch, laid out per
-//   block so each thread's 8 float4 are coalesced 128-bit accesses. It
-//   also sums dC_t = sum_d h_t g_t, which needs the forward state only, so
-//   sweep 2 needs h_{t-1} alone.
+//   block so each thread's 8 float4 are coalesced 128-bit accesses.
 // - Sweep 2 walks the chunks against the scan direction: it recomputes h
-//   through the chunk into shared memory (64 KB for 4 steps of 128
-//   threads x 32 states), then runs the adjoint through it, last step
-//   first. mu = dA_t lam_t is also the product the dA and ddt terms need,
-//   so the adjoint takes one exp per state entry.
+//   through the chunk into shared memory (h_t after each step; 64 KB for
+//   4 steps of 128 threads x 32 states), then runs the adjoint through
+//   it, last step first. The dA and ddt terms take dA_t h_{t-1} as
+//   h_t - dt_t u_t B_t, and dC_t = sum_d h_t g_t comes from the same h_t,
+//   so the adjoint needs no other state and sweep 1 sums nothing. The
+//   next chunk's first state (into h, free during the adjoint), u, dt and
+//   g are read while the adjoint runs.
 // - Cross-channel sums once per chunk: a thread adds its R channels in
-//   registers and leaves 16 sums a step in shared memory (dC in one of two
-//   halves of the state buffer in sweep 1; dB in the state slot the
-//   adjoint step just read, in sweep 2); after the chunk's barrier each
-//   thread adds the 4 warps' sums of one quad of states, in a fixed
-//   order, and writes one float32 partial per (block row, t, n, b). dA
-//   and dD stay in registers over the whole scan and are summed over the
-//   block's lanes with warp shuffles into per-block partials. A second
-//   pass (sum_partials) adds the partials in a fixed order: no atomics, so
-//   every gradient is the same from run to run.
-// - 107 KB of shared memory a block: two blocks (8 warps) per SM. The
-//   registers (h, mu, the dA sums and the chunk's u, dt, g: ~130 values)
-//   fit in the 255 that two 128-thread blocks leave a thread.
+//   registers and leaves 16 dB and 16 dC sums a step in the state slot
+//   the adjoint step has just read; after the chunk's barrier each thread
+//   adds the 4 warps' sums of one quad of states, in a fixed order, and
+//   writes one float4 partial per (block row, t, quad, b).
+//   sum_quads_kernel then adds the block rows in a fixed order into dB
+//   and dC. dA and dD stay in registers over the whole scan and are
+//   summed over the block's lanes with warp shuffles into per-block
+//   partials (sum_partials). No atomics: every gradient is the same from
+//   run to run.
+// - 107 KB of shared memory a block: two blocks (8 warps) per SM, whose
+//   255 registers a thread hold h, mu, the dA sums and two chunks of u,
+//   dt and g without spills.
 // - n < 16 runs the 16-wide loop on zeros (A, B and C staged as 0), as K1.
 #include "common.cuh"
 
@@ -236,26 +239,35 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   float* const stage = sBC + (stages_B ? 0 : kMat) + 2 * m * kRow + i0;
 
   auto token = [&](int pos) { return reverse ? L - 1 - pos : pos; };
-  auto load_stage = [&](int pos, T (&v)[4][2]) {
+  // staged values as loaded, two lanes a word (kPair) or one, until they
+  // are stored: splitting a bf16 pair right after its load waits there
+  struct Held {
+    P pair[4];
+    T one[4][2];
+  };
+  auto load_stage = [&](int pos, Held& v) {
     const char* p = src_s + static_cast<size_t>(token(pos)) * step_n;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if constexpr (kPair) {
-        const P x = *reinterpret_cast<const P*>(p + src[e][0]);
-        v[e][0] = x.x;
-        v[e][1] = x.y;
+        v.pair[e] = *reinterpret_cast<const P*>(p + src[e][0]);
       } else {
-        v[e][0] = *reinterpret_cast<const T*>(p + src[e][0]);
-        v[e][1] = *reinterpret_cast<const T*>(p + src[e][1]);
+        v.one[e][0] = *reinterpret_cast<const T*>(p + src[e][0]);
+        v.one[e][1] = *reinterpret_cast<const T*>(p + src[e][1]);
       }
     }
   };
-  auto store_stage = [&](int buf, int k, const T (&v)[4][2]) {
+  auto store_stage = [&](int buf, int k, const Held& v) {
     float q[2][4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      q[0][e] = keep[e] ? vct::to_f32(v[e][0]) : 0.f;
-      q[1][e] = keep[e] ? vct::to_f32(v[e][1]) : 0.f;
+      float2 f;
+      if constexpr (kPair)
+        f = vct::PairOf<T>::unpack(v.pair[e]);
+      else
+        f = make_float2(vct::to_f32(v.one[e][0]), vct::to_f32(v.one[e][1]));
+      q[0][e] = keep[e] ? f.x : 0.f;
+      q[1][e] = keep[e] ? f.y : 0.f;
     }
     float* dst = stage + buf * kBuf + k * kStep;
     *reinterpret_cast<float4*>(dst) =
@@ -337,7 +349,7 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   load_bound(0);
   if (stages_B)
     for (int k = 0; k < min(kChunk, L); ++k) {
-      T v[4][2];
+      Held v;
       load_stage(k, v);
       store_stage(0, k, v);
     }
@@ -376,7 +388,7 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
     for (int k = 0; k < kChunk; ++k) {
       if (k >= tc) break;
       const int pos = base + k;
-      T v[4][2];
+      Held v;
       if (stages_B && k < tn) load_stage(pos + kChunk, v);
       float dtv[kR], dtu[kR];
 #pragma unroll
@@ -416,7 +428,7 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   // Sweep 2's first chunk (the last in scan order), B and C, into buffer
   // 0: every read of sweep 1's buffers came before its last barrier.
   for (int k = 0; k < L - last * kChunk; ++k) {
-    T v[4][2];
+    Held v;
     load_stage(last * kChunk + k, v);
     store_stage(0, k, v);
   }
@@ -492,7 +504,7 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
 #pragma unroll
     for (int k = kChunk - 1; k >= 0; --k) {
       if (k >= tc) continue;
-      T v[4][2];
+      Held v;
       if (c > 0) load_stage(base - kChunk + k, v);
       float uv[kR], dtv[kR], gv[kR], dtu[kR], S[kR], Tt[kR];
 #pragma unroll
@@ -565,7 +577,7 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
     // a ragged chunk (the last, first here) stages the rest of the next
     if (c > 0)
       for (int k = tc; k < kChunk; ++k) {
-        T v[4][2];
+        Held v;
         load_stage(base - kChunk + k, v);
         store_stage(buf ^ 1, k, v);
       }
