@@ -17,8 +17,8 @@ the result lines:
    (8, 8) instance, with the ratio new / old), the
    adjoints (K5-K7) at its train shapes (batch 1024 and a ragged 1001;
    K5 timed in bf16 at all four of a train step's launches, each printed
-   with its bound and share), and the gradients of the four autograd Functions against autograd
-   through their plain versions.
+   with its bound and share), and the gradients of the four autograd
+   Functions against autograd through their plain versions.
 3. slice   — the port's ``--serve`` daemon on the Synthetic scene at
    Houston2013 size (349 x 1905, 144 + 1 bands, 15 classes) under the bf16
    policy, with seeded random weights loaded through convert.py: three

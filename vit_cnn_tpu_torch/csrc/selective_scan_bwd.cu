@@ -91,6 +91,13 @@ constexpr size_t kStageFloats = size_t(2) * 2 * kChunk * kLanes * kRow;
 constexpr size_t kSmemBytes =
     sizeof(float) * (kStateFloats + kStageFloats + kChannels * kMaxN);
 
+__device__ __forceinline__ void add4(float4& a, const float4& x) {
+  a.x += x.x;
+  a.y += x.y;
+  a.z += x.z;
+  a.w += x.w;
+}
+
 struct Work {            // carve of the float32 workspace
   float4* bounds;        // chunks' first states, per block
   float4 *pB, *pC;       // dB, dC partials [ns][block row][L][4][b] float4
@@ -109,7 +116,8 @@ inline size_t bound_floats(int ns, int L, int d, int b) {
 }
 
 inline Work carve(float* w, int ns, int L, int d, int n, int b) {
-  const size_t plane = static_cast<size_t>(ns) * channel_blocks(d) * L * 4 * b;
+  const size_t plane =          // float4
+      static_cast<size_t>(ns) * channel_blocks(d) * L * 4 * b;
   Work out;
   out.bounds = reinterpret_cast<float4*>(w);
   out.pB = reinterpret_cast<float4*>(w + bound_floats(ns, L, d, b));
@@ -142,19 +150,13 @@ __global__ void sum_quads_kernel(const float4* __restrict__ pB,
   const size_t s = blockIdx.y;
   const float4* src = (blockIdx.z ? pC : pB) + s * parts * m + j;
   float4 acc = src[0];
-  for (int p = 1; p < parts; ++p) {
-    const float4 x = src[static_cast<size_t>(p) * m];
-    acc.x += x.x;
-    acc.y += x.y;
-    acc.z += x.z;
-    acc.w += x.w;
-  }
+  for (int p = 1; p < parts; ++p) add4(acc, src[static_cast<size_t>(p) * m]);
   const long long t = j / (4LL * b), bb = j % b;
   T* out = (blockIdx.z ? dC : dB) + ((s * L + t) * n + 4 * q) * b + bb;
   const float v[4] = {acc.x, acc.y, acc.z, acc.w};
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
-    if (4 * q + e < n) out[static_cast<size_t>(e) * b] = vct::from_f32<T>(v[e]);
+  for (int e = 0; e < 4 && 4 * q + e < n; ++e)
+    out[static_cast<size_t>(e) * b] = vct::from_f32<T>(v[e]);
 }
 
 // kPair: b is even, so B and C are staged two lanes a load (as K1)
@@ -275,13 +277,16 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
     *reinterpret_cast<float4*>(dst + kRow) =
         make_float4(q[1][0], q[1][1], q[1][2], q[1][3]);
   };
-  auto load_udg = [&](int pos, T (&uv)[kR], T (&dtv)[kR], T (&gv)[kR]) {
-    const size_t off = static_cast<size_t>(token(pos)) * step_d;
+  // this thread's values of u, dt or g (`src`) in the chunk starting at
+  // `base`, as loaded: they are read a chunk ahead
+  auto load_rows = [&](const char* src, int base, T (&x)[kChunk][kR]) {
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      uv[r] = *reinterpret_cast<const T*>(u_s + off + col[r]);
-      dtv[r] = *reinterpret_cast<const T*>(dt_s + off + col[r]);
-      gv[r] = *reinterpret_cast<const T*>(g_s + off + col[r]);
+    for (int k = 0; k < kChunk; ++k) {
+      if (base + k >= L) break;
+      const size_t off = static_cast<size_t>(token(base + k)) * step_d;
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+        x[k][r] = *reinterpret_cast<const T*>(src + off + col[r]);
     }
   };
   auto used = [&](int r, T x) { return ok[r] ? vct::to_f32(x) : 0.f; };
@@ -304,15 +309,8 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
       float4 vb = p[0], vc = p[4 * kThreads];
 #pragma unroll
       for (int ww = 1; ww < kWarps; ++ww) {
-        const float4 xb = p[ww * kLanes], xc = p[4 * kThreads + ww * kLanes];
-        vb.x += xb.x;
-        vb.y += xb.y;
-        vb.z += xb.z;
-        vb.w += xb.w;
-        vc.x += xc.x;
-        vc.y += xc.y;
-        vc.z += xc.z;
-        vc.w += xc.w;
+        add4(vb, p[ww * kLanes]);
+        add4(vc, p[4 * kThreads + ww * kLanes]);
       }
       if (bi < b && i < n) {
         const size_t o =
@@ -345,6 +343,34 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
     }
   };
 
+  // one step of the forward from the staged B row `sb`
+  auto advance = [&](const float* sb, const float (&dtv)[kR],
+                     const float (&dtu)[kR]) {
+#pragma unroll
+    for (int q = 0; q < kMaxN / 4; ++q) {
+      const float4 b4 = *reinterpret_cast<const float4*>(sb + 4 * q);
+      const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const float4 a4 =
+            *reinterpret_cast<const float4*>(&sA[(cr + r) * kMaxN + 4 * q]);
+        const float aq[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          h[r][4 * q + e] = fmaf(vct::ex2_approx(dtv[r] * aq[e]),
+                                 h[r][4 * q + e], dtu[r] * bq[e]);
+      }
+    }
+  };
+  // h as this thread's 8 float4 at dst[q * kThreads]
+  auto store_h = [&](float4* dst) {
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q) {
+      const float* x = &h[q / 4][4 * (q % 4)];
+      dst[q * kThreads] = make_float4(x[0], x[1], x[2], x[3]);
+    }
+  };
+
   // ---- sweep 1: the forward, keeping each chunk's first state ----
   load_bound(0);
   if (stages_B)
@@ -353,37 +379,19 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
       load_stage(k, v);
       store_stage(0, k, v);
     }
-  // u and dt of the chunk starting at `base`, raw, read a chunk ahead
-  auto load_ud = [&](int base, T (&uu)[kChunk][kR], T (&dd)[kChunk][kR]) {
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      if (base + k >= L) break;
-      const size_t off = static_cast<size_t>(token(base + k)) * step_d;
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        uu[k][r] = *reinterpret_cast<const T*>(u_s + off + col[r]);
-        dd[k][r] = *reinterpret_cast<const T*>(dt_s + off + col[r]);
-      }
-    }
-  };
-  T su[kChunk][kR], sdt[kChunk][kR];
-  load_ud(0, su, sdt);
+  T su[kChunk][kR], sdt[kChunk][kR];        // the chunk's u and dt
+  load_rows(u_s, 0, su);
+  load_rows(dt_s, 0, sdt);
   __syncthreads();
 
   for (int c = 0, buf = 0; c < nch; ++c, buf ^= 1) {
     const int base = c * kChunk;
     const int tc = min(kChunk, L - base);
     const int tn = max(0, min(kChunk, L - base - kChunk));  // next chunk
-    if (c > 0) {
-      float4* o = bound_of(c);
-#pragma unroll
-      for (int q = 0; q < kQuads; ++q) {
-        const float* x = &h[q / 4][4 * (q % 4)];
-        o[q * kThreads] = make_float4(x[0], x[1], x[2], x[3]);
-      }
-    }
+    if (c > 0) store_h(bound_of(c));
     T nu[kChunk][kR], ndt[kChunk][kR];     // the next chunk's
-    load_ud(base + kChunk, nu, ndt);
+    load_rows(u_s, base + kChunk, nu);
+    load_rows(dt_s, base + kChunk, ndt);
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
       if (k >= tc) break;
@@ -396,23 +404,7 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
         dtv[r] = used(r, sdt[k][r]);
         dtu[r] = dtv[r] * used(r, su[k][r]);
       }
-      const float* sb = sBC + buf * kBuf + k * kStep + lane * kRow;
-#pragma unroll
-      for (int q = 0; q < kMaxN / 4; ++q) {
-        const float4 b4 = *reinterpret_cast<const float4*>(sb + 4 * q);
-        const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int r = 0; r < kR; ++r) {
-          const float4 a4 =
-              *reinterpret_cast<const float4*>(&sA[(cr + r) * kMaxN + 4 * q]);
-          const float aq[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            h[r][4 * q + e] =
-                fmaf(vct::ex2_approx(dtv[r] * aq[e]), h[r][4 * q + e],
-                     dtu[r] * bq[e]);
-        }
-      }
+      advance(sBC + buf * kBuf + k * kStep + lane * kRow, dtv, dtu);
       if (stages_B && k < tn) store_stage(buf ^ 1, k, v);
     }
     __syncthreads();   // next chunk staged; this chunk's reads done
@@ -434,10 +426,9 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   }
   load_bound(last);
   T uc[kChunk][kR], dtc[kChunk][kR], gc[kChunk][kR];   // the chunk's u, dt, g
-#pragma unroll
-  for (int k = 0; k < kChunk; ++k)
-    if (last * kChunk + k < L)
-      load_udg(last * kChunk + k, uc[k], dtc[k], gc[k]);
+  load_rows(u_s, last * kChunk, uc);
+  load_rows(dt_s, last * kChunk, dtc);
+  load_rows(g_s, last * kChunk, gc);
   __syncthreads();
 
   // ---- sweep 2: chunks against the scan direction ----
@@ -466,38 +457,17 @@ selective_scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
         dtv[r] = used(r, dtc[k][r]);
         dtu[r] = dtv[r] * used(r, uc[k][r]);
       }
-      const float* sb = sb0 + k * kStep;
-#pragma unroll
-      for (int q = 0; q < kMaxN / 4; ++q) {
-        const float4 b4 = *reinterpret_cast<const float4*>(sb + 4 * q);
-        const float bq[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int r = 0; r < kR; ++r) {
-          const float4 a4 =
-              *reinterpret_cast<const float4*>(&sA[(cr + r) * kMaxN + 4 * q]);
-          const float aq[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            h[r][4 * q + e] =
-                fmaf(vct::ex2_approx(dtv[r] * aq[e]), h[r][4 * q + e],
-                     dtu[r] * bq[e]);
-        }
-      }
-      float4* hs = sH + k * kSlot + tid;
-#pragma unroll
-      for (int q = 0; q < kQuads; ++q) {
-        const float* x = &h[q / 4][4 * (q % 4)];
-        hs[q * kThreads] = make_float4(x[0], x[1], x[2], x[3]);
-      }
+      advance(sb0 + k * kStep, dtv, dtu);
+      store_h(sH + k * kSlot + tid);
     }
     // h is free until the next chunk: its first state, u, dt and g are
     // read during the adjoint
     T nu[kChunk][kR], ndt[kChunk][kR], ng[kChunk][kR];   // next chunk's
     if (c > 0) {
       load_bound(c - 1);
-#pragma unroll
-      for (int k = 0; k < kChunk; ++k)
-        load_udg(base - kChunk + k, nu[k], ndt[k], ng[k]);
+      load_rows(u_s, base - kChunk, nu);
+      load_rows(dt_s, base - kChunk, ndt);
+      load_rows(g_s, base - kChunk, ng);
     }
 
     // adjoint through the chunk, last step first, staging the next chunk
