@@ -62,6 +62,7 @@ def test_flagship_step_cpu(tiny_scene):
     ("dir_conv_silu_bwd_kernel", "K6 dir_conv backward"),
     ("inv_perm_weighted_sum_bwd_kernel", "K7 inv-sum backward"),
     ("sum_partials_kernel", "K5-K7 partial sums"),
+    ("sum_quads_kernel<__nv_bfloat16>", "K5-K7 partial sums"),
     ("nvjet_tst_128x64", "GEMM"),
     ("void at::native::vectorized_elementwise_kernel<4>", "elementwise/copy/cast"),
     ("multi_tensor_apply_kernel", "optimizer"),

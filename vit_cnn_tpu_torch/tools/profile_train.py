@@ -43,6 +43,7 @@ _FAMILIES = (
     ("inv_perm_weighted_sum_bwd", "K7 inv-sum backward"),
     ("inv_perm_weighted_sum_kernel", "K3 inv-sum forward"),
     ("sum_partials", "K5-K7 partial sums"),
+    ("sum_quads", "K5-K7 partial sums"),
     ("heads_kernel", "K8 heads attention"),
     ("pooled_kernel", "K9 pooled attention"),
     ("attention", "K4 attention forward"),
