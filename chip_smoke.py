@@ -12,9 +12,10 @@ the result lines:
    on the card, in float32 (tight) and bfloat16 (one bf16 step), with
    median times of kernel and plain version (CUDA events): the forwards
    (K1 selective scan, K2 dir_conv_silu, K3 inv_perm_weighted_sum, K4
-   attention) at the flagship's serving shapes and one ragged batch (K1
-   and K2 timed at both stages in bf16, K1 beside the first K1, V1's
-   (8, 8) instance, with the ratio new / old), the
+   attention) at the flagship's serving shapes and one ragged batch (K1,
+   K2 and K3 timed at both stages in bf16, K4 at both NonLocal shapes
+   beside SDPA, each with its bound and share; K1 beside the first K1,
+   V1's (8, 8) instance, with the ratio new / old), the
    adjoints (K5-K7) at its train shapes (batch 1024 and a ragged 1001;
    K5 timed in bf16 at all four of a train step's launches, each printed
    with its bound and share), and the gradients of the four autograd
@@ -348,7 +349,7 @@ def phase_kernels():
                 err = _compare("K3 inv_perm_weighted_sum L={} d={} b={}"
                                .format(L, d, b), got, want, dn)
                 t = p = bound = None
-                if main:
+                if band:
                     t = _median_ms(lambda: dirstream.inv_perm_weighted_sum(
                         yf, yr, wf, wr, inv, rev_rows))
                     p = _median_ms(
@@ -356,6 +357,13 @@ def phase_kernels():
                             yf, yr, wf, wr, inv, rev_rows), reps=3)
                     bound = _bound([yf, yr, wf, wr, inv, rev_rows, got], dn,
                                    flops=2 * 10 * L * d * b)
+                    print("    K3 {}: kernel {:.3f} ms, plain {:.3f}, bound "
+                          "{:.3f} ({}), share {:.1%}".format(
+                              stage, t, p, *bound, bound[0] / t), flush=True)
+                    _timed(rows, "inv_perm_weighted_sum", stage, dn, ms=t,
+                           plain_ms=p, bound_ms=bound[0], bound_by=bound[1])
+                    if not main:
+                        t = p = bound = None
                 record("inv_perm_weighted_sum", err, dn, t, p, bound)
                 del u, got, want, yf, yr
         # K4 at the NonLocal shapes of hsi1 and hsi2
@@ -372,7 +380,9 @@ def phase_kernels():
                     G, lq, lk, dh), got, want, dn)
                 t = p = bound = None
                 extra = {}
-                if timed and G == BAND_WINDOWS and lq == 49:
+                if timed and G == BAND_WINDOWS:       # timed, both shapes
+                    shape = "serving {}x{} dh={} (G={})".format(lq, lk, dh,
+                                                                 G)
                     t = _median_ms(lambda: attention.fused_attention(
                         q, k, v, 1.0))
                     p = _median_ms(lambda: attention.attention_reference(
@@ -382,6 +392,16 @@ def phase_kernels():
                     extra["library_ms"] = _median_ms(
                         lambda: F.scaled_dot_product_attention(
                             q, k, v, scale=1.0))
+                    print("    K4 {}: kernel {:.3f} ms, plain {:.3f}, SDPA "
+                          "{:.3f}, bound {:.3f} ({}), share {:.1%}".format(
+                              shape, t, p, extra["library_ms"], *bound,
+                              bound[0] / t), flush=True)
+                    _timed(rows, "fused_attention", shape, dn, ms=t,
+                           plain_ms=p, bound_ms=bound[0], bound_by=bound[1],
+                           **extra)
+                    if lq != 49:                      # the table's shape
+                        t = p = bound = None
+                        extra = {}
                 record("fused_attention", err, dn, t, p, bound, **extra)
     torch.cuda.synchronize()
     phase_heads_kernels(rows)

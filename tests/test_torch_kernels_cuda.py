@@ -209,6 +209,109 @@ def test_attention(gen, dtype, G, lq, lk, dh, scale):
            attention_reference(q, k, v, scale), dtype)
 
 
+# K3's dispatch: planes of d * b values, 16 bytes a thread where every
+# plane starts 16-byte aligned (d * b a multiple of 8 in bf16, 4 in
+# float32), one value a thread elsewhere; the main path's 6 + 4 streams
+# fixed at compile time, other counts read at run time
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 3, 4, 1024, 7588])
+def test_inverse_sum_edges(gen, dtype, b):
+    """K3 at one token, ragged and aligned planes, no reverse streams and
+    stream counts other than 6 + 4."""
+    for L, d, nb, rev_rows in [(1, 3, 6, (0, 1, 2, 3)),
+                               (81, 72, 6, (0, 1, 2, 3)),
+                               (49, 5, 3, (0, 2)), (9, 8, 2, (1,)),
+                               (4, 7, 2, ())]:
+        _, inv = _orders(L, nb, L + b)
+        rr = torch.tensor(rev_rows, dtype=torch.int32, device="cuda")
+        nr = len(rev_rows)
+        yf = _randn(gen, nb, L, d, b).to(dtype)
+        yr = _randn(gen, nr, L, d, b).to(dtype)
+        w = torch.softmax(_randn(gen, nb + nr), 0)
+        wf, wr = w[:nb], w[nb:]
+        before = _build.launches["inv_perm_weighted_sum"]
+        got = inv_perm_weighted_sum(yf, yr, wf, wr, inv, rr)
+        assert _build.launches["inv_perm_weighted_sum"] == before + 1
+        _close(got, inv_perm_weighted_sum_reference(yf, yr, wf, wr, inv, rr),
+               dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nb,rev_rows", [(6, (0, 1, 2, 3)), (3, (1,))])
+def test_inverse_sum_misaligned_views(gen, dtype, nb, rev_rows):
+    """Contiguous streams at an odd element offset of their buffer: K3
+    takes one value a thread."""
+    L, d, b = 9, 8, 64
+    nr = len(rev_rows)
+    size = L * d * b
+    flat = _randn(gen, (nb + nr) * size + 1).to(dtype)
+    yf = flat[1:1 + nb * size].view(nb, L, d, b)
+    yr = flat[1 + nb * size:].view(nr, L, d, b)
+    assert yf.data_ptr() % 16 and yr.data_ptr() % 16
+    _, inv = _orders(L, nb, 3)
+    rr = torch.tensor(rev_rows, dtype=torch.int32, device="cuda")
+    w = torch.softmax(_randn(gen, nb + nr), 0)
+    _close(inv_perm_weighted_sum(yf, yr, w[:nb], w[nb:], inv, rr),
+           inv_perm_weighted_sum_reference(yf, yr, w[:nb], w[nb:], inv, rr),
+           dtype)
+
+
+# K4's dispatch: the tiled instance for dh % 8 == 0, Lk <= 16 and 16-byte
+# aligned q, k, v (Lk 9 and 4 fixed at compile time), the one-group-a-
+# block instance elsewhere; G = 7 and 15 leave the last tile of (49, 9,
+# 128) and (25, 4, 72) part full
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lk", [1, 2, 4, 7, 9, 15, 16, 17, 40, 64])
+@pytest.mark.parametrize("dh", [8, 33, 72, 128, 256])
+def test_attention_edges(gen, dtype, lk, dh):
+    for G, lq, scale in [(7, 49, 1.0), (15, 25, 0.3), (3, 1, 1.0)]:
+        q, k, v = (0.5 * _randn(gen, G, n, dh) for n in (lq, lk, lk))
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        before = _build.launches["fused_attention"]
+        got = fused_attention(q, k, v, scale)
+        assert _build.launches["fused_attention"] == before + 1
+        _close(got, attention_reference(q, k, v, scale), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lq,lk,dh", [(25, 4, 72), (2, 3, 8)])
+def test_attention_beyond_one_grid(gen, dtype, lq, lk, dh):
+    """70,000 groups: more than the 65,535 blocks of one grid dimension."""
+    G = 70000
+    q, k, v = (0.5 * _randn(gen, G, n, dh) for n in (lq, lk, lk))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    _close(fused_attention(q, k, v, 1.0), attention_reference(q, k, v, 1.0),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_misaligned_views(gen, dtype):
+    """q, k and v contiguous at an odd element offset of one buffer."""
+    G, lq, lk, dh = 7, 49, 9, 128
+    flat = (0.5 * _randn(gen, G * (lq + 2 * lk) * dh + 1)).to(dtype)
+    nq, nk = G * lq * dh, G * lk * dh
+    q = flat[1:1 + nq].view(G, lq, dh)
+    k = flat[1 + nq:1 + nq + nk].view(G, lk, dh)
+    v = flat[1 + nq + nk:].view(G, lk, dh)
+    assert q.data_ptr() % 16 and k.data_ptr() % 16 and v.data_ptr() % 16
+    _close(fused_attention(q, k, v, 1.0), attention_reference(q, k, v, 1.0),
+           dtype)
+
+
+def test_attention_keeps_p_in_float32(gen):
+    """A float32 case that P rounded to bf16 before P.V fails by two
+    orders of magnitude (P's relative step 2^-9 against rtol 1e-4): the
+    kernel must keep P in float32, as the TPU kernel does."""
+    G, lq, lk, dh = 64, 49, 9, 128
+    q, k, v = (_randn(gen, G, n, dh) for n in (lq, lk, lk))
+    want = attention_reference(q, k, v, 0.125)
+    p = torch.softmax(torch.einsum("gid,gjd->gij", q, k) * 0.125, -1)
+    rounded = torch.einsum("gij,gjd->gid", p.bfloat16().float(), v)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(rounded, want, **TOL[torch.float32])
+    _close(fused_attention(q, k, v, 0.125), want, torch.float32)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = _randn(gen, 2, 3, 8)
     with pytest.raises(ValueError, match="Lk <= 64"):

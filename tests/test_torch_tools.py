@@ -100,7 +100,9 @@ def test_kernel_ablation_reads_ptxas_usage():
 
 
 @pytest.mark.parametrize("argv", [["scan", "a.cu"], ["conv", "a.cu", "b.cu"],
-                                  ["scan_bwd", "old/a.cu", "a.cu"]])
+                                  ["scan_bwd", "old/a.cu", "a.cu"],
+                                  ["sum", "old/dirstream.cu", "dirstream.cu"],
+                                  ["attn", "attention.cu"]])
 def test_kernel_ablation_parses_kind_and_sources(argv):
     kind, srcs = kernel_ablation.parse_args(argv)
     assert kind == argv[0]
@@ -108,9 +110,11 @@ def test_kernel_ablation_parses_kind_and_sources(argv):
     assert all(p.is_absolute() for p in srcs)
 
 
-@pytest.mark.parametrize("argv", [[], ["scan_bwd"], ["bwd", "a.cu"]])
+@pytest.mark.parametrize("argv", [[], ["scan_bwd"], ["bwd", "a.cu"],
+                                  ["attn"], ["inv_sum", "a.cu"]])
 def test_kernel_ablation_refuses_other_arguments(argv):
-    with pytest.raises(SystemExit, match=r"scan\|conv\|scan_bwd A.cu"):
+    with pytest.raises(SystemExit,
+                       match=r"scan\|conv\|sum\|attn\|scan_bwd A.cu"):
         kernel_ablation.parse_args(argv)
 
 
@@ -129,6 +133,48 @@ def test_kernel_ablation_scan_bwd_cases_are_the_train_launches():
     assert entry + "_workspace" in _build._WORKSPACE_SIGNATURES
     assert kernel_ablation.CASES["scan_bwd"] == (
         kernel_ablation.SCAN_BWD_CASES, kernel_ablation.scan_bwd_case)
+
+
+def test_kernel_ablation_sum_cases_are_the_main_path_launches():
+    """K3's cases are its launches on the flagship's paths: serving stages
+    1 (81 tokens, d 72) and 2 (49, 128) at a band of 7,588 windows and
+    train stage 1 at batch 1024, through the C entry point."""
+    from vit_cnn_tpu_torch.ops import _build
+
+    assert kernel_ablation.SUM_CASES == (
+        ("stage 1", 81, 72, 7588), ("stage 2", 49, 128, 7588),
+        ("train stage 1", 81, 72, 1024))
+    entry, kernel = kernel_ablation.KINDS["sum"]
+    assert entry == "vct_inv_perm_weighted_sum"
+    assert entry in _build._SIGNATURES
+    assert profile_train.family(kernel) == "K3 inv-sum forward"
+    assert kernel_ablation.CASES["sum"] == (kernel_ablation.SUM_CASES,
+                                            kernel_ablation.sum_case)
+
+
+def test_kernel_ablation_attn_cases_are_the_main_path_launches():
+    """K4's cases are the NonLocal blocks' launches: (Lq, Lk, dh) = (49,
+    9, 128) and (25, 4, 72) over a band of 7,588 windows, and (49, 9, 128)
+    at train batch 1024."""
+    from vit_cnn_tpu_torch.ops import _build
+
+    assert kernel_ablation.ATTN_CASES == (
+        ("stage 1", 7588, 49, 9, 128), ("stage 2", 7588, 25, 4, 72),
+        ("train stage 1", 1024, 49, 9, 128))
+    entry, kernel = kernel_ablation.KINDS["attn"]
+    assert entry == "vct_attention"
+    assert entry in _build._SIGNATURES
+    assert kernel_ablation.CASES["attn"] == (kernel_ablation.ATTN_CASES,
+                                             kernel_ablation.attn_case)
+
+
+@pytest.mark.parametrize("kernel,family", [
+    ("inv_perm_weighted_sum_kernel<__nv_bfloat16, 8, 6, 4>",
+     "K3 inv-sum forward"),
+    ("attention_tile_kernel<__nv_bfloat16, 9>", "K4 attention forward"),
+])
+def test_profile_families_of_the_redesigned_kernels(kernel, family):
+    assert profile_train.family(kernel) == family
 
 
 def test_kernel_ablation_holds_sums_to_their_largest_entry():

@@ -11,6 +11,7 @@
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+#include <string.h>
 
 namespace vct {
 
@@ -54,6 +55,53 @@ struct PairOf<__nv_bfloat16> {
     return __floats2bfloat162_rn(x, y);
   }
 };
+
+// 16 bytes of a dtype (8 bf16 or 4 float32 values) as one uint4 word: one
+// 128-bit load or store, unpacked to or packed from float32
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  static __device__ __forceinline__ void unpack(const uint4& w, float* x) {
+    x[0] = __uint_as_float(w.x);
+    x[1] = __uint_as_float(w.y);
+    x[2] = __uint_as_float(w.z);
+    x[3] = __uint_as_float(w.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* x) {
+    return make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]),
+                      __float_as_uint(x[2]), __float_as_uint(x[3]));
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  static __device__ __forceinline__ float2 two(unsigned int w) {
+    __nv_bfloat162 h;
+    memcpy(&h, &w, sizeof(h));
+    return __bfloat1622float2(h);
+  }
+  static __device__ __forceinline__ unsigned int word(float a, float b) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    unsigned int w;
+    memcpy(&w, &h, sizeof(w));
+    return w;
+  }
+  static __device__ __forceinline__ void unpack(const uint4& w, float* x) {
+    const float2 a = two(w.x), b = two(w.y), c = two(w.z), d = two(w.w);
+    x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+    x[4] = c.x; x[5] = c.y; x[6] = d.x; x[7] = d.y;
+  }
+  static __device__ __forceinline__ uint4 pack(const float* x) {
+    return make_uint4(word(x[0], x[1]), word(x[2], x[3]), word(x[4], x[5]),
+                      word(x[6], x[7]));
+  }
+};
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
 // 2^x by the special-function unit, denormals flushed: one MUFU op
 __device__ __forceinline__ float ex2_approx(float x) {

@@ -21,10 +21,28 @@
 // and (49, 128) with 6 + 4 streams that is about 11 tensors of
 // L * d * b elements each, so both are memory bound.
 //
-// Design of K3: one thread per (d, b) column, warps along b so that every
-// row access is a coalesced 64- or 128-byte segment, whatever the gathered
-// token index. K3 reads each input row exactly once (the orders are
-// permutations).
+// Design of K3. The first K3 gave a thread one (d, b) column and walked
+// the tokens: each warp load moved 64 bytes in bf16, the stream counts and
+// weights were read at run time inside the token loop, so few loads were
+// in flight, and its (b / 32, d / 8) grid left a tail (1.32 TB/s of the
+// card's 3.35). The weights are per stream, not per channel, so output
+// token t is a weighted sum of whole (d, b) planes, one per stream:
+//   out[t, :] = sum_s w_s * y_s[row_s(t), :]
+// and K3 now works on each plane as one flat vector of d * b values:
+// - a thread owns 16 bytes of one token's plane (8 bf16 or 4 float32
+//   values), where d * b is a multiple of that and every plane starts
+//   16-byte aligned (at the serving and train shapes in both dtypes); the
+//   scalar instance takes one value a thread elsewhere;
+// - grid (plane chunks of 256 threads, L): a block's threads share one
+//   token, so its stream rows inv_s[t] are the same broadcast loads for
+//   all of them, cached in L1; no shared memory and no barrier;
+// - the main path's 6 + 4 streams are fixed at compile time: the weights
+//   go to registers, and all 10 16-byte loads of a thread are issued
+//   before its first FMA (160 bytes in flight a thread); other stream
+//   counts are read at run time;
+// - 81 x 267 = 21,627 blocks at serving stage 1 in bf16, dozens of waves,
+//   so the last one is a small share.
+// K3 reads each input row exactly once (the orders are permutations).
 //
 // Design of K2 (the first K2 staged a (L, 4, 32) float32 tile, read each
 // tap as two dependent shared loads, took SiLU by expf and an IEEE
@@ -59,7 +77,7 @@ namespace {
 constexpr int kLanes = 32;      // sequences per block
 constexpr int kConvRows = 2;    // channels per block in K2
 constexpr int kConvLanes = 2 * kLanes;   // sequences per K2 block
-constexpr int kSumRows = 8;     // channels per block in K3
+constexpr int kSumThreads = 256; // threads per block in K3
 constexpr int kMaxTaps = 8;
 
 __device__ __forceinline__ float silu_fast(float x) {
@@ -189,39 +207,96 @@ dir_conv_silu_kernel(const T* __restrict__ u, const float* __restrict__ cw,
   }
 }
 
+// kVec values of T a thread loads from each stream and stores: 16 bytes
+// (Vec16), or one value for planes that are not 16-byte aligned
+template <typename T, int kVec>
+struct SumIO {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const T* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  static __device__ __forceinline__ void unpack(const Raw& w, float* x) {
+    vct::Vec16<T>::unpack(w, x);
+  }
+  static __device__ __forceinline__ void store(T* p, const float* x) {
+    *reinterpret_cast<uint4*>(p) = vct::Vec16<T>::pack(x);
+  }
+};
 template <typename T>
-__global__ void __launch_bounds__(kLanes * kSumRows)
+struct SumIO<T, 1> {
+  using Raw = T;
+  static __device__ __forceinline__ Raw load(const T* p) { return *p; }
+  static __device__ __forceinline__ void unpack(const Raw& w, float* x) {
+    x[0] = vct::to_f32(w);
+  }
+  static __device__ __forceinline__ void store(T* p, const float* x) {
+    *p = vct::from_f32<T>(x[0]);
+  }
+};
+
+// One thread: kVec neighbouring values of one token's (d, b) plane. Grid
+// (plane chunks, L): every thread of a block shares its token, so the
+// stream rows it gathers are the same broadcast loads for all of them.
+// NB, NR: stream counts fixed at compile time (all NB + NR loads issued
+// before the first FMA, weights in registers), or -1 to read nb, nr.
+template <typename T, int kVec, int NB, int NR>
+__global__ void __launch_bounds__(kSumThreads)
 inv_perm_weighted_sum_kernel(const T* __restrict__ yf,
                              const T* __restrict__ yr,
                              const float* __restrict__ wf,
                              const float* __restrict__ wr,
                              const int* __restrict__ inv,
                              const int* __restrict__ rev_rows,
-                             T* __restrict__ out, int L, int d, int b,
+                             T* __restrict__ out, int L, long long n,
                              int nb, int nr) {
-  extern __shared__ int sinv[];   // [nb][L] inverse orders, then [nr] rows
-  int* srows = sinv + nb * L;
-  const int tid = threadIdx.y * kLanes + threadIdx.x;
-  for (int idx = tid; idx < nb * L; idx += kLanes * kSumRows) sinv[idx] = inv[idx];
-  for (int idx = tid; idx < nr; idx += kLanes * kSumRows) srows[idx] = rev_rows[idx];
-  __syncthreads();
-
-  const int bi = blockIdx.x * kLanes + threadIdx.x;
-  const int di = blockIdx.y * kSumRows + threadIdx.y;
-  if (bi >= b || di >= d) return;
-  const size_t seq = static_cast<size_t>(d) * b;
-  const size_t col = static_cast<size_t>(di) * b + bi;
-  const size_t stream = static_cast<size_t>(L) * seq;
-
-  for (int t = 0; t < L; ++t) {
-    float acc = 0.f;
-    for (int i = 0; i < nb; ++i)
-      acc += wf[i] * vct::to_f32(yf[i * stream + sinv[i * L + t] * seq + col]);
-    for (int j = 0; j < nr; ++j)
-      acc += wr[j] *
-             vct::to_f32(yr[j * stream + sinv[srows[j] * L + t] * seq + col]);
-    out[t * seq + col] = vct::from_f32<T>(acc);
+  using IO = SumIO<T, kVec>;
+  const long long e =
+      (static_cast<long long>(blockIdx.x) * kSumThreads + threadIdx.x) * kVec;
+  if (e >= n) return;
+  const int t = blockIdx.y;
+  const size_t stream = static_cast<size_t>(L) * n;
+  float acc[kVec];
+#pragma unroll
+  for (int c = 0; c < kVec; ++c) acc[c] = 0.f;
+  // this thread's values of stream i's (forward) or j's (reverse) row that
+  // lands on token t
+  auto fwd_at = [&](int i) {
+    return yf + i * stream + static_cast<size_t>(inv[i * L + t]) * n + e;
+  };
+  auto rev_at = [&](int j) {
+    return yr + j * stream +
+           static_cast<size_t>(inv[rev_rows[j] * L + t]) * n + e;
+  };
+  auto add = [&](const typename IO::Raw& raw, float w) {
+    float x[kVec];
+    IO::unpack(raw, x);
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) acc[c] = fmaf(w, x[c], acc[c]);
+  };
+  // forward streams first, then reverse ones, as the TPU kernel adds them
+  if constexpr (NB >= 0) {
+    constexpr int kS = NB + NR;
+    typename IO::Raw raw[kS];
+    float w[kS];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      raw[i] = IO::load(fwd_at(i));
+      w[i] = wf[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      raw[NB + j] = IO::load(rev_at(j));
+      w[NB + j] = wr[j];
+    }
+#pragma unroll
+    for (int s = 0; s < kS; ++s) add(raw[s], w[s]);
+  } else {
+#pragma unroll 2
+    for (int i = 0; i < nb; ++i) add(IO::load(fwd_at(i)), wf[i]);
+#pragma unroll 2
+    for (int j = 0; j < nr; ++j) add(IO::load(rev_at(j)), wr[j]);
   }
+  IO::store(out + t * n + e, acc);
 }
 
 template <typename T, int K, bool kEven>
@@ -263,6 +338,43 @@ int by_taps(const void* u, const float* cw, const float* cb,
                                          stream);
 }
 
+template <typename T, int kVec, int NB, int NR>
+int launch_sum(const void* yf, const void* yr, const float* wf,
+               const float* wr, const int* inv, const int* rev_rows,
+               void* out, int L, long long n, int nb, int nr,
+               cudaStream_t stream) {
+  const long long chunks = (n / kVec + kSumThreads - 1) / kSumThreads;
+  dim3 grid(static_cast<unsigned>(chunks), L);
+  inv_perm_weighted_sum_kernel<T, kVec, NB, NR><<<grid, kSumThreads, 0,
+                                                  stream>>>(
+      static_cast<const T*>(yf), static_cast<const T*>(yr), wf, wr, inv,
+      rev_rows, static_cast<T*>(out), L, n, nb, nr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the 16-byte instance where every plane starts 16-byte aligned, the
+// compile-time instance for the main path's 6 + 4 streams
+template <typename T>
+int by_width(const void* yf, const void* yr, const float* wf,
+             const float* wr, const int* inv, const int* rev_rows, void* out,
+             int L, long long n, int nb, int nr, cudaStream_t stream) {
+  constexpr int kV = vct::Vec16<T>::kN;
+  const bool wide = n % kV == 0 && vct::aligned16(yf) &&
+                    (nr == 0 || vct::aligned16(yr)) && vct::aligned16(out);
+  const bool main = nb == 6 && nr == 4;
+  if (wide && main)
+    return launch_sum<T, kV, 6, 4>(yf, yr, wf, wr, inv, rev_rows, out, L, n,
+                                   nb, nr, stream);
+  if (wide)
+    return launch_sum<T, kV, -1, -1>(yf, yr, wf, wr, inv, rev_rows, out, L,
+                                     n, nb, nr, stream);
+  if (main)
+    return launch_sum<T, 1, 6, 4>(yf, yr, wf, wr, inv, rev_rows, out, L, n,
+                                  nb, nr, stream);
+  return launch_sum<T, 1, -1, -1>(yf, yr, wf, wr, inv, rev_rows, out, L, n,
+                                  nb, nr, stream);
+}
+
 }  // namespace
 
 extern "C" int vct_dir_conv_silu(int dtype, const void* u, const float* cw,
@@ -290,29 +402,16 @@ extern "C" int vct_inv_perm_weighted_sum(int dtype, const void* yf,
                                          const int* rev_rows, void* out,
                                          int L, int d, int b, int nb, int nr,
                                          void* stream) {
-  if (nb < 1 || nr < 0 || nr > nb || (d + kSumRows - 1) / kSumRows > 65535)
+  if (nb < 1 || nr < 0 || nr > nb || L > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (L == 0 || d == 0 || b == 0) return 0;
-  const size_t smem = sizeof(int) * (nb * L + nr);
-  dim3 block(kLanes, kSumRows);
-  dim3 grid((b + kLanes - 1) / kLanes, (d + kSumRows - 1) / kSumRows);
+  const long long n = static_cast<long long>(d) * b;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == vct::kF32) {
-    err = vct::allow_smem(inv_perm_weighted_sum_kernel<float>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    inv_perm_weighted_sum_kernel<float><<<grid, block, smem, st>>>(
-        static_cast<const float*>(yf), static_cast<const float*>(yr), wf, wr,
-        inv, rev_rows, static_cast<float*>(out), L, d, b, nb, nr);
-  } else if (dtype == vct::kBF16) {
-    err = vct::allow_smem(inv_perm_weighted_sum_kernel<__nv_bfloat16>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    inv_perm_weighted_sum_kernel<__nv_bfloat16><<<grid, block, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(yf),
-        static_cast<const __nv_bfloat16*>(yr), wf, wr, inv, rev_rows,
-        static_cast<__nv_bfloat16*>(out), L, d, b, nb, nr);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == vct::kF32)
+    return by_width<float>(yf, yr, wf, wr, inv, rev_rows, out, L, n, nb, nr,
+                           st);
+  if (dtype == vct::kBF16)
+    return by_width<__nv_bfloat16>(yf, yr, wf, wr, inv, rev_rows, out, L, n,
+                                   nb, nr, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

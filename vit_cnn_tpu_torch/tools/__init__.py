@@ -6,7 +6,7 @@
   python -m vit_cnn_tpu_torch.tools.scan_sweep          # K1's variants
   python -m vit_cnn_tpu_torch.tools.heads_attn_variants # K8's variants
   python -m vit_cnn_tpu_torch.tools.scan_ab OTHER.cu    # old K1 vs V1 (8, 8)
-  python -m vit_cnn_tpu_torch.tools.kernel_ablation scan|conv|scan_bwd A.cu ...
+  python -m vit_cnn_tpu_torch.tools.kernel_ablation scan|conv|sum|attn|scan_bwd A.cu ...
 
 The first three build their models as ``chip_smoke.py`` does: at
 Houston2013 width on the Synthetic scene at 349 x 1905, with the seeded
@@ -17,7 +17,7 @@ against their bounds (:func:`bound`, with CUDA-event medians,
 :func:`median_ms`); ``chip_smoke.py`` calls the same functions.
 ``scan_ab`` times an older commit's K1 beside this checkout's V1 (8, 8),
 the first K1 kept as a template, on the same inputs (:func:`scan_inputs`);
-``kernel_ablation`` builds copies of K1, K2 or K5 (variants, or another
+``kernel_ablation`` builds copies of K1-K5 (variants, or another
 commit's file) and times them side by side.
 """
 

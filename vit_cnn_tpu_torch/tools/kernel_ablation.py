@@ -1,25 +1,29 @@
-"""Sources of K1, K2 or K5 built side by side and timed on the card.
+"""Sources of K1, K2, K3, K4 or K5 built side by side and timed on the card.
 
-  python -m vit_cnn_tpu_torch.tools.kernel_ablation scan|conv|scan_bwd A.cu [B.cu ...]
+  python -m vit_cnn_tpu_torch.tools.kernel_ablation scan|conv|sum|attn|scan_bwd A.cu [B.cu ...]
 
 Each source is a copy of ``csrc/selective_scan_fwd.cu`` (``scan``, K1),
-``csrc/dirstream.cu`` (``conv``, K2) or ``csrc/selective_scan_bwd.cu``
+``csrc/dirstream.cu`` (``conv``, K2; ``sum``, K3),
+``csrc/attention.cu`` (``attn``, K4) or ``csrc/selective_scan_bwd.cu``
 (``scan_bwd``, K5) with ``common.cuh`` beside it: a variant under study,
 or another commit's file unpacked with ``git archive``. Each is built
 alone with the port's nvcc flags and ``-Xptxas -v``, and the registers,
 spill bytes and shared memory of its kernels are printed as one JSON
 line. Then each source's entry point (``vct_selective_scan``,
-``vct_dir_conv_silu`` or ``vct_selective_scan_bwd`` with its workspace,
-the main path's C signatures) runs on the same inputs at the flagship's
-shapes (:data:`SCAN_CASES`, :data:`CONV_CASES`, :data:`SCAN_BWD_CASES`,
-the last the four K5 launches of a train step) in bf16 and float32: per
+``vct_dir_conv_silu``, ``vct_inv_perm_weighted_sum``, ``vct_attention``
+or ``vct_selective_scan_bwd`` with its workspace, the main path's C
+signatures) runs on the same inputs at the flagship's shapes
+(:data:`SCAN_CASES`, :data:`CONV_CASES`, :data:`SUM_CASES`,
+:data:`ATTN_CASES`, :data:`SCAN_BWD_CASES`: each kernel's launches on
+the main path, K5's the four of a train step) in bf16 and float32: per
 shape and dtype one JSON line with each source's max|diff| against the
 plain version, whether it is within ``tools.TOL`` (K5's outputs, sums
 whose terms cancel, against ``atol + rtol * max|want|``), the median of
 :data:`ROUNDS` CUDA-event medians taken in rotating order (the sources in
-order, then reversed), and for K5 the launch's bound (``tools.bound``, 16
-exps per element). Exit code 1 when a source disagrees with the plain
-version.
+order, then reversed), and for K3, K4 and K5 the launch's bound
+(``tools.bound``: bytes, FLOPs, K4's and K5's exps) and for K4 the time
+of ``scaled_dot_product_attention`` on the same inputs. Exit code 1 when
+a source disagrees with the plain version.
 """
 
 from __future__ import annotations
@@ -47,6 +51,13 @@ SCAN_CASES = (("stage 1", 6, 81, 72, BAND, False),
 # (label, L, d, b): the '{L}_2+8' orders, 6 forward and 4 reverse streams
 CONV_CASES = (("stage 1", 81, 72, BAND), ("stage 2", 49, 128, BAND),
               ("train stage 1", 81, 72, TRAIN))
+# (label, L, d, b): K3's launches, 6 forward and 4 reverse streams
+SUM_CASES = (("stage 1", 81, 72, BAND), ("stage 2", 49, 128, BAND),
+             ("train stage 1", 81, 72, TRAIN))
+# (label, G, Lq, Lk, dh): K4's launches, the NonLocal blocks of hsi1 and
+# hsi2 (scale 1.0)
+ATTN_CASES = (("stage 1", BAND, 49, 9, 128), ("stage 2", BAND, 25, 4, 72),
+              ("train stage 1", TRAIN, 49, 9, 128))
 # (label, streams, L, d, b, reverse): K5's four launches per train step
 SCAN_BWD_CASES = (("train stage 1", 6, 81, 72, TRAIN, False),
                   ("train stage 1", 4, 81, 72, TRAIN, True),
@@ -55,6 +66,8 @@ SCAN_BWD_CASES = (("train stage 1", 6, 81, 72, TRAIN, False),
 DTYPES = (torch.bfloat16, torch.float32)
 KINDS = {"scan": ("vct_selective_scan", "selective_scan_fwd_kernel"),
          "conv": ("vct_dir_conv_silu", "dir_conv_silu_kernel"),
+         "sum": ("vct_inv_perm_weighted_sum", "inv_perm_weighted_sum_kernel"),
+         "attn": ("vct_attention", "attention"),
          "scan_bwd": ("vct_selective_scan_bwd", "selective_scan_bwd_kernel")}
 
 
@@ -214,18 +227,28 @@ def scan_bwd_case(entries, names, label, ns, L, d, b, reverse, dtype):
                 dtype=dn, bound_ms=bound_ms, bound_by=bound_by, sources=rows)
 
 
-def conv_case(entries, names, label, L, d, b, dtype):
+def _tables(L):
+    """The '{L}_2+8' orders of the flagship's Mamba layer on the card:
+    (orders, inverse orders, reverse rows), int32."""
     import numpy as np
 
-    from ..ops import _build
-    from ..ops.dirstream import dir_conv_silu_reference
-    from ..ops.scan_paths import base_paths
+    from ..ops.scan_paths import base_paths, inverse_permutation
 
     orders, bases, _, rev_dir = base_paths("{}_2+8".format(L), L)
     i32 = dict(dtype=torch.int32, device="cuda")
     order_t = torch.tensor(np.stack([orders[i] for i in bases]), **i32)
+    inv_t = torch.tensor(np.stack([inverse_permutation(orders[i])
+                                   for i in bases]), **i32)
     rev_rows = torch.tensor([i for i, r in enumerate(rev_dir) if r >= 0],
                             **i32)
+    return order_t, inv_t, rev_rows
+
+
+def conv_case(entries, names, label, L, d, b, dtype):
+    from ..ops import _build
+    from ..ops.dirstream import dir_conv_silu_reference
+
+    order_t, _, rev_rows = _tables(L)
     nb, nr = order_t.shape[0], rev_rows.shape[0]
     g = torch.Generator(device="cuda").manual_seed(0)
     u = torch.randn((L, d, b), generator=g, device="cuda").to(dtype)
@@ -250,7 +273,74 @@ def conv_case(entries, names, label, L, d, b, dtype):
                 sources=_timed([runner(e) for e in entries], names, want, dn))
 
 
+def sum_case(entries, names, label, L, d, b, dtype):
+    from ..ops import _build
+    from ..ops.dirstream import inv_perm_weighted_sum_reference
+
+    _, inv, rev_rows = _tables(L)
+    nb, nr = inv.shape[0], rev_rows.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    yf = torch.randn((nb, L, d, b), generator=g, device="cuda").to(dtype)
+    yr = torch.randn((nr, L, d, b), generator=g, device="cuda").to(dtype)
+    w = torch.softmax(torch.randn((nb + nr,), generator=g, device="cuda"), 0)
+    wf, wr = w[:nb].contiguous(), w[nb:].contiguous()
+    want = inv_perm_weighted_sum_reference(yf, yr, wf, wr, inv, rev_rows)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def runner(entry):
+        def run():
+            out = torch.empty((L, d, b), dtype=dtype, device="cuda")
+            _build.check("vct_inv_perm_weighted_sum", entry(
+                _build.dtype_code(yf), yf.data_ptr(), yr.data_ptr(),
+                wf.data_ptr(), wr.data_ptr(), inv.data_ptr(),
+                rev_rows.data_ptr(), out.data_ptr(), L, d, b, nb, nr,
+                stream))
+            return out
+        return run
+
+    dn = str(dtype).split(".")[1]
+    bound_ms, bound_by = bound([yf, yr, wf, wr, inv, rev_rows, want], dn,
+                               flops=2 * (nb + nr) * L * d * b)
+    return dict(case=label, L=L, d=d, b=b, dtype=dn, bound_ms=bound_ms,
+                bound_by=bound_by,
+                sources=_timed([runner(e) for e in entries], names, want, dn))
+
+
+def attn_case(entries, names, label, G, lq, lk, dh, dtype):
+    import torch.nn.functional as F
+
+    from ..ops import _build
+    from ..ops.attention import attention_reference
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (0.3 * torch.randn((G, n, dh), generator=g, device="cuda")
+               for n in (lq, lk, lk))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    want = attention_reference(q, k, v, 1.0)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def runner(entry):
+        def run():
+            o = torch.empty_like(q)
+            _build.check("vct_attention", entry(
+                _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), G, lq, lk, dh, 1.0, stream))
+            return o
+        return run
+
+    dn = str(dtype).split(".")[1]
+    bound_ms, bound_by = bound([q, k, v, want], dn, exps=G * lq * lk,
+                               flops=4 * G * lq * lk * dh)
+    rows = _timed([runner(e) for e in entries], names, want, dn)
+    sdpa_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, scale=1.0))
+    return dict(case=label, G=G, Lq=lq, Lk=lk, dh=dh, dtype=dn,
+                bound_ms=bound_ms, bound_by=bound_by, sdpa_ms=sdpa_ms,
+                sources=rows)
+
+
 CASES = {"scan": (SCAN_CASES, scan_case), "conv": (CONV_CASES, conv_case),
+         "sum": (SUM_CASES, sum_case), "attn": (ATTN_CASES, attn_case),
          "scan_bwd": (SCAN_BWD_CASES, scan_bwd_case)}
 
 
