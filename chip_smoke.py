@@ -17,9 +17,10 @@ the result lines:
    beside SDPA, each with its bound and share; K1 beside the first K1,
    V1's (8, 8) instance, with the ratio new / old), the
    adjoints (K5-K7) at its train shapes (batch 1024 and a ragged 1001;
-   K5 timed in bf16 at all four of a train step's launches, each printed
-   with its bound and share), and the gradients of the four autograd
-   Functions against autograd through their plain versions.
+   K5 timed in bf16 at all four of a train step's launches, K6 and K7 at
+   both train stages, each printed with its bound and share), and the
+   gradients of the four autograd Functions against autograd through
+   their plain versions.
 3. slice   — the port's ``--serve`` daemon on the Synthetic scene at
    Houston2013 size (349 x 1905, 144 + 1 bands, 15 classes) under the bf16
    policy, with seeded random weights loaded through convert.py: three
@@ -615,11 +616,21 @@ def phase_adjoints(rows):
                 out = bwd()
                 err = _compare("K6 dir_conv_silu bwd L={} d={} b={}".format(
                     L, d, b), out, plain(), dn, summed=(1, 2))
+                stage = "train stage {} (L={}, d={}, b={})".format(
+                    1 if L == 81 else 2, L, d, b)
                 t = p = bound = None
-                if main:
+                if train:                     # timed, both stages
                     t, p = _median_ms(bwd), _median_ms(plain, reps=3)
+                    # one sigmoid exp per stream output
                     bound = _bound([u, cw, cb, orders, rev_rows, gf, gr,
                                     *out], dn, exps=10 * L * d * b)
+                    print("    K6 {}: kernel {:.3f} ms, plain {:.3f}, bound "
+                          "{:.3f} ({}), share {:.1%}".format(
+                              stage, t, p, *bound, bound[0] / t), flush=True)
+                    _timed(rows, "dir_conv_silu_backward", stage, dn, ms=t,
+                           plain_ms=p, bound_ms=bound[0], bound_by=bound[1])
+                    if not main:              # the table's shape
+                        t = p = bound = None
                 record("dir_conv_silu_backward", err, dn, t, p, bound)
                 wts = torch.softmax(randn(10), 0)
                 wf, wr = wts[:6], wts[6:]
@@ -634,10 +645,18 @@ def phase_adjoints(rows):
                                .format(L, d, b), out, plain(), dn,
                                summed=(2, 3))
                 t = p = bound = None
-                if main:
+                if train:
                     t, p = _median_ms(bwd), _median_ms(plain, reps=3)
                     bound = _bound([gf, gr, wf, wr, inv, rev_rows, cot, *out],
                                    dn, flops=2 * 10 * L * d * b)
+                    print("    K7 {}: kernel {:.3f} ms, plain {:.3f}, bound "
+                          "{:.3f} ({}), share {:.1%}".format(
+                              stage, t, p, *bound, bound[0] / t), flush=True)
+                    _timed(rows, "inv_perm_weighted_sum_backward", stage, dn,
+                           ms=t, plain_ms=p, bound_ms=bound[0],
+                           bound_by=bound[1])
+                    if not main:
+                        t = p = bound = None
                 record("inv_perm_weighted_sum_backward", err, dn, t, p,
                        bound)
                 del u, gf, gr, cot, out

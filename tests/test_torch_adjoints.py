@@ -121,12 +121,10 @@ def _i32(x):
 CASES = [("49_2+8", 49, 5), ("9_2+8", 9, 3)]
 
 
-@pytest.mark.parametrize("path,length,b", CASES)
-def test_dir_conv_adjoint_matches_jax(path, length, b):
-    orders, _, rev_rows = _tables(path, length)
+def _dir_conv_adjoint_case(orders, rev_rows, length, b, k):
     rng = np.random.RandomState(2)
     u = rng.randn(length, D, b).astype(np.float32)
-    cw = (0.5 * rng.randn(4, D)).astype(np.float32)
+    cw = (0.5 * rng.randn(k, D)).astype(np.float32)
     cb = (0.1 * rng.randn(D)).astype(np.float32)
     gf = rng.randn(len(orders), length, D, b).astype(np.float32)
     gr = rng.randn(len(rev_rows), length, D, b).astype(np.float32)
@@ -141,6 +139,25 @@ def test_dir_conv_adjoint_matches_jax(path, length, b):
                      *(jnp.asarray(a) for a in (u, cw, cb)))
     _close(got, pallas)
     _close(got, vjp((jnp.asarray(gf), jnp.asarray(gr))))
+
+
+@pytest.mark.parametrize("path,length,b", CASES)
+def test_dir_conv_adjoint_matches_jax(path, length, b):
+    orders, _, rev_rows = _tables(path, length)
+    _dir_conv_adjoint_case(orders, rev_rows, length, b, 4)
+
+
+@pytest.mark.parametrize("path,length,b,k,rev_rows", [
+    ("49_2+8", 49, 5, 2, None), ("9_2+8", 9, 3, 2, (2, 0)),
+    ("9_2+8", 9, 3, 4, (3, 1, 0)), ("49_2+8", 49, 5, 4, ())])
+def test_dir_conv_adjoint_at_other_taps_and_reverse_rows(path, length, b, k,
+                                                        rev_rows):
+    """The plain K6 adjoint against the Pallas adjoint at k = 2 and with
+    the reverse streams listed out of order or absent: a reverse stream's
+    slot comes from rev_rows, not from its order's position."""
+    orders, _, table_rows = _tables(path, length)
+    _dir_conv_adjoint_case(orders, table_rows if rev_rows is None
+                           else rev_rows, length, b, k)
 
 
 @pytest.mark.parametrize("path,length,b", CASES)

@@ -392,6 +392,122 @@ def test_dirstream_adjoints(gen, dtype, L, d, b, nb, rev_rows, k):
     _close_summed(got[3], want[3], dtype)
 
 
+def _conv_adjoint_case(gen, dtype, L, d, b, nb, rev_rows, k, scale=1.0):
+    orders, _ = _orders(L, nb, L + k + b)
+    rr = torch.tensor(rev_rows, dtype=torch.int32, device="cuda")
+    u = (scale * _randn(gen, L, d, b)).to(dtype)
+    cw, cb = 0.5 * _randn(gen, k, d), 0.1 * _randn(gen, d)
+    gf = _randn(gen, nb, L, d, b).to(dtype)
+    gr = _randn(gen, len(rev_rows), L, d, b).to(dtype)
+    return u, cw, cb, orders, rr, gf, gr
+
+
+def _check_conv_adjoint(args, dtype):
+    before = _build.launches["dir_conv_silu_backward"]
+    got = dir_conv_silu_backward(*args)
+    assert _build.launches["dir_conv_silu_backward"] == before + 1
+    want = dir_conv_silu_backward_reference(*args)
+    _close(got[0], want[0], dtype)
+    _close_summed(got[1], want[1], dtype)
+    _close_summed(got[2], want[2], dtype)
+
+
+# K6's dispatch: the pair instance where b is even and every pair aligned,
+# two scalar loads elsewhere; a window of 4 taps for k <= 4, 8 beyond. One
+# channel and 64 sequences a block, so b = 1, 33, 65 and 1,001 leave the
+# last block part empty; L = 1-3 walks fewer tokens than the window;
+# rev_rows unsorted or empty; stream counts other than 6 + 4
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 33, 64, 65, 1001])
+@pytest.mark.parametrize("d", [1, 5, 72])
+def test_dir_conv_silu_backward_edges(gen, dtype, b, d):
+    for L, k, nb, rev_rows in [(1, 1, 1, (0,)), (2, 4, 2, (1,)),
+                               (3, 8, 3, (2, 0)), (81, 4, 6, (0, 1, 2, 3)),
+                               (49, 8, 2, ()), (9, 2, 3, (2, 0)),
+                               (13, 1, 4, (3, 1, 0)), (5, 6, 5, (4, 2))]:
+        _check_conv_adjoint(
+            _conv_adjoint_case(gen, dtype, L, d, b, nb, rev_rows, k), dtype)
+
+
+def test_dir_conv_silu_backward_fast_sigmoid_float32(gen):
+    """K6 takes SiLU' with ex2.approx and __fdividef: float32 within
+    ``TOL`` where the preactivations reach |z| of 25 and more at both ends
+    (u x 8), so the sigmoid saturates at 0 and at 1."""
+    args = _conv_adjoint_case(gen, torch.float32, 81, 72, 256, 6,
+                              (0, 1, 2, 3), 4, scale=8.0)
+    fwd, _ = dir_conv_silu_reference(*args[:5])
+    # silu(z) = z sigmoid(z): an output above 30 needs z > 30, one of
+    # magnitude below 1e-9 (and not exactly 0) needs z < -25
+    assert float(fwd.max()) > 30
+    assert int(((fwd.abs() < 1e-9) & (fwd != 0)).sum()) > 0
+    _check_conv_adjoint(args, torch.float32)
+
+
+# K7's dispatch: 16 bytes a thread where every plane starts 16-byte
+# aligned (d * b a multiple of 8 in bf16, 4 in float32), one value a
+# thread elsewhere; 6 + 4 streams fixed at compile time, other counts read
+# at run time; up to 32 token groups, so L = 1, 40 and 81 walk one, two
+# and three tokens a block
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 3, 4, 1024])
+def test_inverse_sum_backward_edges(gen, dtype, b):
+    for L, d, nb, rev_rows in [(1, 3, 6, (0, 1, 2, 3)),
+                               (81, 72, 6, (0, 1, 2, 3)),
+                               (49, 5, 3, (2, 0)), (9, 8, 2, (1,)),
+                               (4, 7, 2, ()), (40, 16, 8, (7, 0, 3, 5, 1))]:
+        _, inv = _orders(L, nb, L + b)
+        rr = torch.tensor(rev_rows, dtype=torch.int32, device="cuda")
+        nr = len(rev_rows)
+        yf = _randn(gen, nb, L, d, b).to(dtype)
+        yr = _randn(gen, nr, L, d, b).to(dtype)
+        w = torch.softmax(_randn(gen, nb + nr), 0)
+        g = _randn(gen, L, d, b).to(dtype)
+        before = _build.launches["inv_perm_weighted_sum_backward"]
+        got = inv_perm_weighted_sum_backward(yf, yr, w[:nb], w[nb:], inv, rr,
+                                             g)
+        assert _build.launches["inv_perm_weighted_sum_backward"] == \
+            before + 1
+        want = inv_perm_weighted_sum_backward_reference(
+            yf, yr, w[:nb], w[nb:], inv, rr, g)
+        _close(got[:2], want[:2], dtype)
+        _close_summed(got[2], want[2], dtype)
+        _close_summed(got[3], want[3], dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nb,rev_rows", [(6, (0, 1, 2, 3)), (3, (2, 0))])
+def test_dirstream_adjoints_misaligned_views(gen, dtype, nb, rev_rows):
+    """Inputs contiguous at an odd element offset of one buffer: K6 takes
+    its scalar instance, K7 one value a thread."""
+    L, d, b = 9, 8, 64
+    nr = len(rev_rows)
+    size = L * d * b
+    flat = _randn(gen, (2 + 2 * (nb + nr)) * size + 1).to(dtype)
+    at = [1]
+
+    def take(n):                     # the next n planes of flat, as a view
+        x = flat[at[0]:at[0] + n * size].view(n, L, d, b)
+        at[0] += n * size
+        return x
+
+    u, g, gf, gr, yf, yr = (take(1)[0], take(1)[0], take(nb), take(nr),
+                            take(nb), take(nr))
+    # not aligned to a pair of values, nor to 16 bytes
+    assert all(x.data_ptr() % (2 * x.element_size())
+               for x in (u, g, gf, gr, yf, yr))
+    orders, inv = _orders(L, nb, 5)
+    rr = torch.tensor(rev_rows, dtype=torch.int32, device="cuda")
+    cw, cb = 0.5 * _randn(gen, 4, d), 0.1 * _randn(gen, d)
+    _check_conv_adjoint((u, cw, cb, orders, rr, gf, gr), dtype)
+    w = torch.softmax(_randn(gen, nb + nr), 0)
+    got = inv_perm_weighted_sum_backward(yf, yr, w[:nb], w[nb:], inv, rr, g)
+    want = inv_perm_weighted_sum_backward_reference(yf, yr, w[:nb], w[nb:],
+                                                    inv, rr, g)
+    _close(got[:2], want[:2], dtype)
+    _close_summed(got[2], want[2], dtype)
+    _close_summed(got[3], want[3], dtype)
+
+
 def _grads_through(fn, inputs, g):
     leaves = [x.detach().requires_grad_(x.is_floating_point())
               for x in inputs]

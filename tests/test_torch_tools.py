@@ -70,6 +70,12 @@ def test_flagship_step_cpu(tiny_scene):
     ("pooled_kernel<__nv_bfloat16, 4>", "K9 pooled attention"),
     ("attention_kernel<__nv_bfloat16>", "K4 attention forward"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_ndhwc", "conv"),
+    ("(anonymous namespace)::dir_conv_silu_bwd_kernel<__nv_bfloat16, 4, "
+     "true>(__nv_bfloat16 const*, float const*)", "K6 dir_conv backward"),
+    ("(anonymous namespace)::inv_perm_weighted_sum_bwd_kernel<__nv_bfloat16, "
+     "8, 6, 4>(__nv_bfloat16 const*)", "K7 inv-sum backward"),
+    ("(anonymous namespace)::sum_partials_rows_kernel(float const*, float*, "
+     "long long)", "K5-K7 partial sums"),
 ])
 def test_profile_families(kernel, family):
     assert profile_train.family(kernel) == family
@@ -102,7 +108,10 @@ def test_kernel_ablation_reads_ptxas_usage():
 @pytest.mark.parametrize("argv", [["scan", "a.cu"], ["conv", "a.cu", "b.cu"],
                                   ["scan_bwd", "old/a.cu", "a.cu"],
                                   ["sum", "old/dirstream.cu", "dirstream.cu"],
-                                  ["attn", "attention.cu"]])
+                                  ["attn", "attention.cu"],
+                                  ["conv_bwd", "old/dirstream_bwd.cu",
+                                   "dirstream_bwd.cu"],
+                                  ["sum_bwd", "dirstream_bwd.cu"]])
 def test_kernel_ablation_parses_kind_and_sources(argv):
     kind, srcs = kernel_ablation.parse_args(argv)
     assert kind == argv[0]
@@ -111,10 +120,11 @@ def test_kernel_ablation_parses_kind_and_sources(argv):
 
 
 @pytest.mark.parametrize("argv", [[], ["scan_bwd"], ["bwd", "a.cu"],
-                                  ["attn"], ["inv_sum", "a.cu"]])
+                                  ["attn"], ["inv_sum", "a.cu"],
+                                  ["conv_bwd"], ["sum_bwd"]])
 def test_kernel_ablation_refuses_other_arguments(argv):
-    with pytest.raises(SystemExit,
-                       match=r"scan\|conv\|sum\|attn\|scan_bwd A.cu"):
+    with pytest.raises(SystemExit, match=(
+            r"scan\|conv\|sum\|attn\|scan_bwd\|conv_bwd\|sum_bwd A.cu")):
         kernel_ablation.parse_args(argv)
 
 
@@ -133,6 +143,38 @@ def test_kernel_ablation_scan_bwd_cases_are_the_train_launches():
     assert entry + "_workspace" in _build._WORKSPACE_SIGNATURES
     assert kernel_ablation.CASES["scan_bwd"] == (
         kernel_ablation.SCAN_BWD_CASES, kernel_ablation.scan_bwd_case)
+
+
+@pytest.mark.parametrize("kind,family", [
+    ("conv_bwd", "K6 dir_conv backward"), ("sum_bwd", "K7 inv-sum backward")])
+def test_kernel_ablation_dirstream_adjoint_cases_are_the_train_launches(
+        kind, family):
+    """K6's and K7's cases are their two launches per train step: stage 1
+    (81 tokens, d 72) and stage 2 (49, 128) at batch 1024, each with 6
+    forward and 4 reverse streams, run through the C entry point and its
+    workspace; their kernels file under their own profile rows."""
+    from vit_cnn_tpu_torch.ops import _build
+
+    cases, run_case = kernel_ablation.CASES[kind]
+    assert cases == (("train stage 1", 81, 72, 1024),
+                     ("train stage 2", 49, 128, 1024))
+    assert run_case is getattr(kernel_ablation, kind + "_case")
+    entry, kernel = kernel_ablation.KINDS[kind]
+    assert entry in _build._SIGNATURES
+    assert entry + "_workspace" in _build._WORKSPACE_SIGNATURES
+    assert profile_train.family(kernel) == family
+
+
+def test_kernel_ablation_holds_adjoints_elementwise_and_sums_by_scale():
+    """An adjoint's leading outputs (K6's du, K7's dy) are held elementwise,
+    its summed gradients against their largest entry."""
+    want = (torch.tensor([1000.0, 1e-3]), torch.tensor([1000.0, 1e-3]))
+    near = (want[0], torch.tensor([1000.05, 0.05]))
+    err, ok = kernel_ablation.compare_grads(near, want, "float32", plain=1)
+    assert ok and err == pytest.approx(0.05, abs=1e-3)
+    off = (torch.tensor([1000.0, 0.05]), want[1])
+    assert not kernel_ablation.compare_grads(off, want, "float32", plain=1)[1]
+    assert kernel_ablation.compare_grads(off, want, "float32", plain=0)[1]
 
 
 def test_kernel_ablation_sum_cases_are_the_main_path_launches():

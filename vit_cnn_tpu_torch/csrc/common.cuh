@@ -99,6 +99,33 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
+// kVec values of T that a thread loads and stores as one word: 16 bytes
+// (Vec16), or one value where a plane is not 16-byte aligned
+template <typename T, int kVec>
+struct VecIO {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const T* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  static __device__ __forceinline__ void unpack(const Raw& w, float* x) {
+    Vec16<T>::unpack(w, x);
+  }
+  static __device__ __forceinline__ void store(T* p, const float* x) {
+    *reinterpret_cast<uint4*>(p) = Vec16<T>::pack(x);
+  }
+};
+template <typename T>
+struct VecIO<T, 1> {
+  using Raw = T;
+  static __device__ __forceinline__ Raw load(const T* p) { return *p; }
+  static __device__ __forceinline__ void unpack(const Raw& w, float* x) {
+    x[0] = to_f32(w);
+  }
+  static __device__ __forceinline__ void store(T* p, const float* x) {
+    *p = from_f32<T>(x[0]);
+  }
+};
+
 inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }

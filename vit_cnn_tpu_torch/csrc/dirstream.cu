@@ -207,33 +207,6 @@ dir_conv_silu_kernel(const T* __restrict__ u, const float* __restrict__ cw,
   }
 }
 
-// kVec values of T a thread loads from each stream and stores: 16 bytes
-// (Vec16), or one value for planes that are not 16-byte aligned
-template <typename T, int kVec>
-struct SumIO {
-  using Raw = uint4;
-  static __device__ __forceinline__ Raw load(const T* p) {
-    return *reinterpret_cast<const uint4*>(p);
-  }
-  static __device__ __forceinline__ void unpack(const Raw& w, float* x) {
-    vct::Vec16<T>::unpack(w, x);
-  }
-  static __device__ __forceinline__ void store(T* p, const float* x) {
-    *reinterpret_cast<uint4*>(p) = vct::Vec16<T>::pack(x);
-  }
-};
-template <typename T>
-struct SumIO<T, 1> {
-  using Raw = T;
-  static __device__ __forceinline__ Raw load(const T* p) { return *p; }
-  static __device__ __forceinline__ void unpack(const Raw& w, float* x) {
-    x[0] = vct::to_f32(w);
-  }
-  static __device__ __forceinline__ void store(T* p, const float* x) {
-    *p = vct::from_f32<T>(x[0]);
-  }
-};
-
 // One thread: kVec neighbouring values of one token's (d, b) plane. Grid
 // (plane chunks, L): every thread of a block shares its token, so the
 // stream rows it gathers are the same broadcast loads for all of them.
@@ -249,7 +222,7 @@ inv_perm_weighted_sum_kernel(const T* __restrict__ yf,
                              const int* __restrict__ rev_rows,
                              T* __restrict__ out, int L, long long n,
                              int nb, int nr) {
-  using IO = SumIO<T, kVec>;
+  using IO = vct::VecIO<T, kVec>;
   const long long e =
       (static_cast<long long>(blockIdx.x) * kSumThreads + threadIdx.x) * kVec;
   if (e >= n) return;

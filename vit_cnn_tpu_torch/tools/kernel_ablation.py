@@ -1,29 +1,33 @@
-"""Sources of K1, K2, K3, K4 or K5 built side by side and timed on the card.
+"""Sources of K1-K7 built side by side and timed on the card.
 
-  python -m vit_cnn_tpu_torch.tools.kernel_ablation scan|conv|sum|attn|scan_bwd A.cu [B.cu ...]
+  python -m vit_cnn_tpu_torch.tools.kernel_ablation scan|conv|sum|attn|scan_bwd|conv_bwd|sum_bwd A.cu [B.cu ...]
 
 Each source is a copy of ``csrc/selective_scan_fwd.cu`` (``scan``, K1),
 ``csrc/dirstream.cu`` (``conv``, K2; ``sum``, K3),
-``csrc/attention.cu`` (``attn``, K4) or ``csrc/selective_scan_bwd.cu``
-(``scan_bwd``, K5) with ``common.cuh`` beside it: a variant under study,
+``csrc/attention.cu`` (``attn``, K4), ``csrc/selective_scan_bwd.cu``
+(``scan_bwd``, K5) or ``csrc/dirstream_bwd.cu`` (``conv_bwd``, K6;
+``sum_bwd``, K7) with ``common.cuh`` beside it: a variant under study,
 or another commit's file unpacked with ``git archive``. Each is built
 alone with the port's nvcc flags and ``-Xptxas -v``, and the registers,
 spill bytes and shared memory of its kernels are printed as one JSON
 line. Then each source's entry point (``vct_selective_scan``,
-``vct_dir_conv_silu``, ``vct_inv_perm_weighted_sum``, ``vct_attention``
-or ``vct_selective_scan_bwd`` with its workspace, the main path's C
-signatures) runs on the same inputs at the flagship's shapes
+``vct_dir_conv_silu``, ``vct_inv_perm_weighted_sum``, ``vct_attention``,
+or a backward entry point with its workspace: ``vct_selective_scan_bwd``,
+``vct_dir_conv_silu_bwd``, ``vct_inv_perm_weighted_sum_bwd``; the main
+path's C signatures) runs on the same inputs at the flagship's shapes
 (:data:`SCAN_CASES`, :data:`CONV_CASES`, :data:`SUM_CASES`,
-:data:`ATTN_CASES`, :data:`SCAN_BWD_CASES`: each kernel's launches on
-the main path, K5's the four of a train step) in bf16 and float32: per
-shape and dtype one JSON line with each source's max|diff| against the
-plain version, whether it is within ``tools.TOL`` (K5's outputs, sums
-whose terms cancel, against ``atol + rtol * max|want|``), the median of
-:data:`ROUNDS` CUDA-event medians taken in rotating order (the sources in
-order, then reversed), and for K3, K4 and K5 the launch's bound
-(``tools.bound``: bytes, FLOPs, K4's and K5's exps) and for K4 the time
-of ``scaled_dot_product_attention`` on the same inputs. Exit code 1 when
-a source disagrees with the plain version.
+:data:`ATTN_CASES`, :data:`SCAN_BWD_CASES`, :data:`CONV_BWD_CASES`,
+:data:`SUM_BWD_CASES`: each kernel's launches on the main path, the
+adjoints' those of a train step) in bf16 and float32: per shape and
+dtype one JSON line with each source's max|diff| against the plain
+version, whether it is within ``tools.TOL`` (K5's outputs, and the
+summed gradients of K6 and K7, sums whose terms cancel, against ``atol +
+rtol * max|want|``), the median of :data:`ROUNDS` CUDA-event medians
+taken in rotating order (the sources in order, then reversed), and for
+K3-K7 the launch's bound (``tools.bound``: bytes, FLOPs, K4's, K5's and
+K6's exps) and for K4 the time of ``scaled_dot_product_attention`` on
+the same inputs. Exit code 1 when a source disagrees with the plain
+version.
 """
 
 from __future__ import annotations
@@ -63,12 +67,20 @@ SCAN_BWD_CASES = (("train stage 1", 6, 81, 72, TRAIN, False),
                   ("train stage 1", 4, 81, 72, TRAIN, True),
                   ("train stage 2", 6, 49, 128, TRAIN, False),
                   ("train stage 2", 4, 49, 128, TRAIN, True))
+# (label, L, d, b): K6's and K7's launches per train step, one per stage,
+# 6 forward and 4 reverse streams, k = 4
+CONV_BWD_CASES = (("train stage 1", 81, 72, TRAIN),
+                  ("train stage 2", 49, 128, TRAIN))
+SUM_BWD_CASES = CONV_BWD_CASES
 DTYPES = (torch.bfloat16, torch.float32)
 KINDS = {"scan": ("vct_selective_scan", "selective_scan_fwd_kernel"),
          "conv": ("vct_dir_conv_silu", "dir_conv_silu_kernel"),
          "sum": ("vct_inv_perm_weighted_sum", "inv_perm_weighted_sum_kernel"),
          "attn": ("vct_attention", "attention"),
-         "scan_bwd": ("vct_selective_scan_bwd", "selective_scan_bwd_kernel")}
+         "scan_bwd": ("vct_selective_scan_bwd", "selective_scan_bwd_kernel"),
+         "conv_bwd": ("vct_dir_conv_silu_bwd", "dir_conv_silu_bwd_kernel"),
+         "sum_bwd": ("vct_inv_perm_weighted_sum_bwd",
+                     "inv_perm_weighted_sum_bwd_kernel")}
 
 
 def ptxas_usage(text: str, kernel: str) -> dict:
@@ -145,6 +157,17 @@ def compare_summed(got, want, dtype_name: str):
         top = float(y.abs().max()) if y.numel() else 0.0
         worst = max(worst, d)
         ok = ok and bool(torch.isfinite(x).all()) and d <= atol + rtol * top
+    return worst, ok
+
+
+def compare_grads(got, want, dtype_name: str, plain: int):
+    """(max|diff|, ok) of an adjoint's outputs: the first ``plain`` held
+    elementwise (``tools.compare``), the summed gradients after them as
+    :func:`compare_summed` holds them."""
+    worst, ok = compare_summed(got[plain:], want[plain:], dtype_name)
+    for x, y in zip(got[:plain], want[:plain]):
+        err, this_ok = compare(x, y, dtype_name)
+        worst, ok = max(worst, err), ok and this_ok
     return worst, ok
 
 
@@ -306,6 +329,88 @@ def sum_case(entries, names, label, L, d, b, dtype):
                 sources=_timed([runner(e) for e in entries], names, want, dn))
 
 
+def conv_bwd_case(entries, names, label, L, d, b, dtype):
+    from ..ops import _build
+    from ..ops.dirstream import dir_conv_silu_backward_reference
+
+    order_t, _, rev_rows = _tables(L)
+    nb, nr = order_t.shape[0], rev_rows.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    u = torch.randn((L, d, b), generator=g, device="cuda").to(dtype)
+    cw = 0.5 * torch.randn((4, d), generator=g, device="cuda")
+    cb = 0.1 * torch.randn((d,), generator=g, device="cuda")
+    gf = torch.randn((nb, L, d, b), generator=g, device="cuda").to(dtype)
+    gr = torch.randn((nr, L, d, b), generator=g, device="cuda").to(dtype)
+    want = dir_conv_silu_backward_reference(u, cw, cb, order_t, rev_rows,
+                                            gf, gr)
+    stream = torch.cuda.current_stream().cuda_stream
+    dn = str(dtype).split(".")[1]
+
+    def runner(entry):
+        fn, ws = entry
+        out = [torch.empty_like(x) for x in want]
+        work = torch.empty(ws(d, b, 4), dtype=torch.float32, device="cuda")
+
+        def run():
+            du, dcw, dcb = out
+            _build.check("vct_dir_conv_silu_bwd", fn(
+                _build.dtype_code(u), u.data_ptr(), cw.data_ptr(),
+                cb.data_ptr(), order_t.data_ptr(), rev_rows.data_ptr(),
+                gf.data_ptr(), gr.data_ptr(), du.data_ptr(), dcw.data_ptr(),
+                dcb.data_ptr(), work.data_ptr(), L, d, b, nb, nr, 4, stream))
+            return du, dcw, dcb
+        return run
+
+    # one sigmoid exp per stream output
+    bound_ms, bound_by = bound([u, cw, cb, order_t, rev_rows, gf, gr, *want],
+                               dn, exps=(nb + nr) * L * d * b)
+    rows = _timed([runner(e) for e in entries], names, want, dn,
+                  check=lambda x, y, n: compare_grads(x, y, n, plain=1))
+    return dict(case=label, L=L, d=d, b=b, dtype=dn, bound_ms=bound_ms,
+                bound_by=bound_by, sources=rows)
+
+
+def sum_bwd_case(entries, names, label, L, d, b, dtype):
+    from ..ops import _build
+    from ..ops.dirstream import inv_perm_weighted_sum_backward_reference
+
+    _, inv, rev_rows = _tables(L)
+    nb, nr = inv.shape[0], rev_rows.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    yf = torch.randn((nb, L, d, b), generator=g, device="cuda").to(dtype)
+    yr = torch.randn((nr, L, d, b), generator=g, device="cuda").to(dtype)
+    w = torch.softmax(torch.randn((nb + nr,), generator=g, device="cuda"), 0)
+    wf, wr = w[:nb].contiguous(), w[nb:].contiguous()
+    cot = torch.randn((L, d, b), generator=g, device="cuda").to(dtype)
+    want = inv_perm_weighted_sum_backward_reference(yf, yr, wf, wr, inv,
+                                                    rev_rows, cot)
+    stream = torch.cuda.current_stream().cuda_stream
+    dn = str(dtype).split(".")[1]
+
+    def runner(entry):
+        fn, ws = entry
+        dyf, dyr = torch.empty_like(yf), torch.empty_like(yr)
+        dw = torch.empty((nb + nr,), dtype=torch.float32, device="cuda")
+        work = torch.empty(ws(d, b, nb, nr), dtype=torch.float32,
+                           device="cuda")
+
+        def run():
+            _build.check("vct_inv_perm_weighted_sum_bwd", fn(
+                _build.dtype_code(yf), cot.data_ptr(), yf.data_ptr(),
+                yr.data_ptr(), wf.data_ptr(), wr.data_ptr(), inv.data_ptr(),
+                rev_rows.data_ptr(), dyf.data_ptr(), dyr.data_ptr(),
+                dw.data_ptr(), work.data_ptr(), L, d, b, nb, nr, stream))
+            return dyf, dyr, dw[:nb], dw[nb:]
+        return run
+
+    bound_ms, bound_by = bound([yf, yr, wf, wr, inv, rev_rows, cot, *want],
+                               dn, flops=2 * (nb + nr) * L * d * b)
+    rows = _timed([runner(e) for e in entries], names, want, dn,
+                  check=lambda x, y, n: compare_grads(x, y, n, plain=2))
+    return dict(case=label, L=L, d=d, b=b, dtype=dn, bound_ms=bound_ms,
+                bound_by=bound_by, sources=rows)
+
+
 def attn_case(entries, names, label, G, lq, lk, dh, dtype):
     import torch.nn.functional as F
 
@@ -341,7 +446,9 @@ def attn_case(entries, names, label, G, lq, lk, dh, dtype):
 
 CASES = {"scan": (SCAN_CASES, scan_case), "conv": (CONV_CASES, conv_case),
          "sum": (SUM_CASES, sum_case), "attn": (ATTN_CASES, attn_case),
-         "scan_bwd": (SCAN_BWD_CASES, scan_bwd_case)}
+         "scan_bwd": (SCAN_BWD_CASES, scan_bwd_case),
+         "conv_bwd": (CONV_BWD_CASES, conv_bwd_case),
+         "sum_bwd": (SUM_BWD_CASES, sum_bwd_case)}
 
 
 def main() -> int:
