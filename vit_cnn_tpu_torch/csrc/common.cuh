@@ -56,6 +56,21 @@ struct PairOf<__nv_bfloat16> {
   }
 };
 
+// p[0] = x0 and p[1] = x1 (if v1): one packed store where the pair is
+// known aligned (kAligned) or found aligned and both are in range
+template <typename T, bool kAligned>
+__device__ __forceinline__ void store_pair(T* p, float x0, float x1,
+                                           bool v1) {
+  using P = typename PairOf<T>::type;
+  if (kAligned ||
+      (v1 && reinterpret_cast<uintptr_t>(p) % sizeof(P) == 0)) {
+    *reinterpret_cast<P*>(p) = PairOf<T>::pack(x0, x1);
+  } else {
+    p[0] = from_f32<T>(x0);
+    if (v1) p[1] = from_f32<T>(x1);
+  }
+}
+
 // 16 bytes of a dtype (8 bf16 or 4 float32 values) as one uint4 word: one
 // 128-bit load or store, unpacked to or packed from float32
 template <typename T>

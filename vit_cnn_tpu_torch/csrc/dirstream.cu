@@ -84,21 +84,6 @@ __device__ __forceinline__ float silu_fast(float x) {
   return __fdividef(x, 1.f + vct::ex2_approx(-1.4426950408889634f * x));
 }
 
-// p[0] = x0 and p[1] = x1 (if v1): one packed store where the pair is
-// known aligned (kEven) or found aligned and both are in range
-template <typename T, bool kEven>
-__device__ __forceinline__ void store_pair(T* p, float x0, float x1,
-                                           bool v1) {
-  using P = typename vct::PairOf<T>::type;
-  if (kEven ||
-      (v1 && reinterpret_cast<uintptr_t>(p) % sizeof(P) == 0)) {
-    *reinterpret_cast<P*>(p) = vct::PairOf<T>::pack(x0, x1);
-  } else {
-    p[0] = vct::from_f32<T>(x0);
-    if (v1) p[1] = vct::from_f32<T>(x1);
-  }
-}
-
 // kEven: b is even, so every thread's pair of sequences is in range and
 // every pair of outputs is aligned for one packed store
 template <typename T, int K, bool kEven>
@@ -180,8 +165,8 @@ dir_conv_silu_kernel(const T* __restrict__ u, const float* __restrict__ cw,
         x1 = fmaf(w[j], win[j].y, x1);
       }
       if (t < L)
-        store_pair<T, kEven>(out_f + t * seq, silu_fast(x0), silu_fast(x1),
-                             v1);
+        vct::store_pair<T, kEven>(out_f + t * seq, silu_fast(x0),
+                                  silu_fast(x1), v1);
       if constexpr (kRev) {
         const int s = t - (K - 1);
         float r0 = bias, r1 = bias;
@@ -191,8 +176,8 @@ dir_conv_silu_kernel(const T* __restrict__ u, const float* __restrict__ cw,
           r1 = fmaf(w[j], win[K - 1 - j].y, r1);
         }
         if (s >= 0)
-          store_pair<T, kEven>(out_r + s * seq, silu_fast(r0), silu_fast(r1),
-                               v1);
+          vct::store_pair<T, kEven>(out_r + s * seq, silu_fast(r0),
+                                    silu_fast(r1), v1);
       }
     }
   };

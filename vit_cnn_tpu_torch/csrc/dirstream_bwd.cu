@@ -122,17 +122,6 @@ __device__ __forceinline__ typename vct::PairOf<T>::type load_pair(
   return r;
 }
 
-template <typename T, bool kPair>
-__device__ __forceinline__ void store_pair(T* p, float2 x, bool v1) {
-  using P = typename vct::PairOf<T>::type;
-  if constexpr (kPair) {
-    *reinterpret_cast<P*>(p) = vct::PairOf<T>::pack(x.x, x.y);
-  } else {
-    p[0] = vct::from_f32<T>(x.x);
-    if (v1) p[1] = vct::from_f32<T>(x.y);
-  }
-}
-
 template <typename T>
 size_t conv_bwd_smem(int L, int nb) {
   using P = typename vct::PairOf<T>::type;
@@ -305,8 +294,10 @@ dir_conv_silu_bwd_kernel(const T* __restrict__ u,
   if (v0) {
     T* out = du + col;
 #pragma unroll 4
-    for (int t = 0; t < L; ++t)
-      store_pair<T, kPair>(out + t * seq, my_du[t * kLanes], v1);
+    for (int t = 0; t < L; ++t) {
+      const float2 x = my_du[t * kLanes];
+      vct::store_pair<T, kPair>(out + t * seq, x.x, x.y, v1);
+    }
   }
 
   // dcw, dcb: one partial per (b-block, tap, channel) and (b-block, channel)
