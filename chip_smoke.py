@@ -40,6 +40,22 @@ the result lines:
    versions) from the same weights and 32 centers, flip off: loss, every
    gradient and the updated BatchNorm statistics compared; the card's
    bf16 loss within a bound of the float32 one.
+6b. runloop — the CLI's run loop (``run_experiments``) in a working
+   directory of its own: 2 runs of 2 epochs, bf16, batch 1024, flip on,
+   200 centers a class; each run's best-epoch and final-epoch checkpoint
+   files under the JAX package's names, the reports (each run's and the
+   aggregate), the map PNGs read back (349, 1905, 3), and K1-K7 launched
+   as in phase 5 (the adjoints exactly once per step and use site). Then
+   run 1's best file served through ``--serve --restore`` for 2 requests:
+   the served OA, AA and Kappa equal the run's own, and the file's tensors
+   equal the best state the run held, bit for bit. Then resume at full
+   width in float32: 3 unbroken epochs against 2, save, restore into a
+   trainer of another seed, 1 more, under the deterministic algorithms
+   (rtol 1e-5), and the same with the default ones (printed: the card's
+   default step is not bitwise repeatable, so its spread is shown). Wall
+   time, checkpoint bytes and write / read seconds, and the restored
+   serving's request seconds and windows/s, each beside the card's name
+   and power limit.
 7. zoo     — the transformer zoo's ``--serve`` path on the same scene, bf16,
    seeded weights through convert.py: MHST for three requests, then
    SpectralFormer, S2EFT and GLT_Net for one each; seconds and windows/s,
@@ -47,7 +63,10 @@ the result lines:
    K9) launched exactly as often as the models' layers and bands say.
 8. zoo-crop — each zoo model on a 12 x 64 crop on the card (float32 and
    bf16) and on the CPU in float32, held to phase 4's limits; for MHST
-   the number of head selections that differ between card and CPU.
+   the number of head selections, for S2EFT the number of its band gate's
+   decisions (g >= 0.4), that differ between card and CPU, and for S2EFT
+   the bf16 map's largest difference in windows with and without a
+   flipped gate.
 9. variants — run right after phase 2: the kernel-tuning sweeps
    (``tools/scan_sweep.py``, ``tools/heads_attn_variants.py``) at their
    shapes with fewer repetitions, plus a ragged batch and one token. K1's
@@ -65,8 +84,8 @@ times both dtypes beside their plain versions,
 for K9, the composition of the plain group LayerNorm with K8.
 
 Then one JSON line with the kernel table (time, plain time, bound and what
-bounds it, library time, launches per path: serve, train, serve_zoo and
-sweep), and as the last line
+bounds it, library time, launches per path: serve, train, runloop,
+serve_zoo and sweep), and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -115,6 +134,11 @@ PER_STEP = {"selective_scan": 4, "dir_conv_silu": 2,
             "inv_perm_weighted_sum": 2, "fused_attention": 2,
             "selective_scan_backward": 4, "dir_conv_silu_backward": 2,
             "inv_perm_weighted_sum_backward": 2}
+# phase runloop: runs and epochs of run_experiments, requests of the
+# restored serving, and resume: 3 unbroken float32 epochs against 2 + 1
+RUNLOOP_RUNS, RUNLOOP_EPOCHS, RUNLOOP_REQUESTS = 2, 2, 2
+RESUME_EPOCHS, RESUME_SAVED = 3, 2
+RESUME_RTOL = 1e-5
 HEADS = ("fused_attention_heads", "pooled_heads_attention")
 ZOO = ("MHST", "SpectralFormer", "S2EFT", "GLT_Net")
 MHST_REQUESTS = 3
@@ -1058,6 +1082,262 @@ def phase_train_crop(tmp, state):
         raise Failed("the card's train step disagrees with the CPU's")
 
 
+def _resume_trainer(scene, state, train_gt, seed, epochs):
+    """A float32 Trainer of the flagship on the card from ``state``:
+    batch 1024, flip on, no val pipeline (the metric is -loss), no
+    checkpoint files."""
+    from vit_cnn_tpu_torch.models.registry import get_model
+    from vit_cnn_tpu_torch.pipeline.patches import AugmentConfig, \
+        PatchPipeline
+    from vit_cnn_tpu_torch.train.loop import Trainer
+
+    img1, img2, _ = scene
+    n_classes = int(SCENE["VCT_SYN_CLASSES"])
+    model, _, hp = get_model(
+        "Multimodality_Mamba", dataset="Synthetic", n_classes=n_classes,
+        n_bands=(img1.shape[2], img2.shape[2]), ignored_labels=[0],
+        batch_size=TRAIN_BATCH, epoch=epochs, flip_augmentation=True)
+    model.load_state_dict(state)
+    model.to("cuda")
+    pipe = PatchPipeline(img1, img2, train_gt, hp["patch_size"], [0],
+                         n_classes, augment=AugmentConfig(flip=True),
+                         device="cuda")
+    return Trainer(model, hp, pipe, seed=seed, save_checkpoints=False)
+
+
+def _trajectory_diff(a, b):
+    """Largest relative difference of two trainers' last epochs' losses
+    and final state: |loss diff| / |loss|, and per tensor max|diff| /
+    max|a|."""
+    n = len(b.log.losses)
+    worst = max(abs(x - y) / abs(x) for x, y in zip(a.log.losses[-n:],
+                                                   b.log.losses))
+    sb = b.model.state_dict()
+    for k, v in a.model.state_dict().items():
+        top = float(v.abs().max())
+        if top > 0:
+            worst = max(worst, float((sb[k] - v).abs().max()) / top)
+    return worst
+
+
+def _resume_check(tmp, scene, state, deterministic):
+    """3 unbroken float32 epochs twice (their spread), and 2 + save +
+    restore into a trainer of another seed + 1; with ``deterministic``,
+    under cuDNN's deterministic algorithms and
+    ``torch.use_deterministic_algorithms``."""
+    import torch
+
+    before = (torch.backends.cudnn.deterministic,
+              torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = deterministic
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        return _resume_runs(tmp, scene, state)
+    finally:
+        torch.backends.cudnn.deterministic = before[0]
+        torch.use_deterministic_algorithms(before[1])
+
+
+def _resume_runs(tmp, scene, state):
+    import numpy as np
+
+    from vit_cnn_tpu_torch.data.sampling import sample_gt
+
+    np.random.seed(SEED)
+    train_gt = sample_gt(scene[2], 200, mode="random_fixednumber",
+                         seed=SEED)[0]
+    unbroken = []
+    for _ in range(2):
+        t = _resume_trainer(scene, state, train_gt, SEED, RESUME_EPOCHS)
+        t.fit(dataset_name="Synthetic")
+        unbroken.append(t)
+    first = _resume_trainer(scene, state, train_gt, SEED, RESUME_SAVED)
+    first.fit(dataset_name="Synthetic")
+    path = first.save_resumable(os.path.join(tmp, "resume", "state"),
+                                epoch=RESUME_SAVED)
+    resumed = _resume_trainer(scene, state, train_gt, SEED + 123,
+                              RESUME_EPOCHS)
+    start = resumed.restore_resumable(path)
+    resumed.fit(dataset_name="Synthetic", start_epoch=start)
+    spread = _trajectory_diff(unbroken[0], unbroken[1])
+    diff = _trajectory_diff(unbroken[0], resumed)
+    return start, spread, diff, unbroken[0].log.losses, resumed.log.losses
+
+
+def phase_runloop(tmp, state, card):
+    """The CLI's run loop at full width in a working directory of its own,
+    run 1's best file served back through --serve --restore, and resume at
+    full width in float32. Returns the run loop's kernel launches."""
+    import contextlib
+    import re
+
+    import numpy as np
+    import torch
+
+    from vit_cnn_tpu_torch import cli
+    from vit_cnn_tpu_torch.data import get_dataset
+    from vit_cnn_tpu_torch.ops import _build
+    from vit_cnn_tpu_torch.train import checkpoint as ckpt
+    from vit_cnn_tpu_torch.utils.viz import read_png
+
+    work = os.path.join(tmp, "runloop")
+    os.makedirs(work)
+    scene = get_dataset("Synthetic", tmp)[:3]
+    h, w = scene[0].shape[:2]
+    n_classes = int(SCENE["VCT_SYN_CLASSES"])
+    # what the runs hold in memory: each trainer's best state, each split
+    trainers, splits = [], []
+
+    class Recording(cli.Trainer):
+        def fit(self, *args, **kwargs):
+            self.best_state = super().fit(*args, **kwargs)
+            trainers.append(self)
+            return self.best_state
+
+    def load_gt_pair(*args, **kwargs):
+        splits.append(real_load(*args, **kwargs))
+        return splits[-1]
+
+    real_trainer, real_load = cli.Trainer, cli._load_gt_pair
+    cwd = os.getcwd()
+    os.chdir(work)                      # ./checkpoints and ./results here
+    stdout = io.StringIO()
+    try:
+        cli.Trainer, cli._load_gt_pair = Recording, load_gt_pair
+        args = cli.build_parser().parse_args([
+            "--dataset", "Synthetic", "--folder", tmp, "--model",
+            "Multimodality_Mamba", "--bf16", "--batch_size",
+            str(TRAIN_BATCH), "--flip_augmentation", "--runs",
+            str(RUNLOOP_RUNS), "--epoch", str(RUNLOOP_EPOCHS),
+            "--training_sample", "200", "--out_dir",
+            os.path.join(work, "results"), "--log_every", "1"])
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            results = cli.run_experiments(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launches)
+    finally:
+        cli.Trainer, cli._load_gt_pair = real_trainer, real_load
+        os.chdir(cwd)
+    lines = [json.loads(l) for l in stdout.getvalue().splitlines() if l]
+    for line in lines:
+        print("[runloop] {}".format(json.dumps(line)), flush=True)
+    print("[runloop] run_experiments: {} runs of {} epochs in {:.1f} s "
+          "({})".format(RUNLOOP_RUNS, RUNLOOP_EPOCHS, wall, card),
+          flush=True)
+    if len(results) != RUNLOOP_RUNS or len(lines) != RUNLOOP_RUNS + 1 or \
+            lines[-1].get("runs") != RUNLOOP_RUNS:
+        raise Failed("run_experiments did not report {} runs and their "
+                     "aggregate".format(RUNLOOP_RUNS))
+    steps = 0
+    for r in results:
+        if not all(np.isfinite(r["losses"])):
+            raise Failed("run {}: non-finite epoch loss".format(r["run"]))
+        steps += -(-r["train_samples"] // TRAIN_BATCH) * r["epochs"]
+        for kind in ("best", "final"):
+            path = r[kind + "_checkpoint"] or ""
+            name = r"{}_epoch/\d{{4}}(_\d\d){{5}}Multimodality_Mamba_run{}_" \
+                r"epoch\d+_\d+\.\d\d\.msgpack$".format(kind, r["run"])
+            if not (path.startswith("./checkpoints/multimodalitymamba/"
+                                    "Synthetic/train/")
+                    and re.search(name, path)
+                    and os.path.isfile(os.path.join(work, path))):
+                raise Failed("run {}: no {}-epoch file under the JAX name "
+                             "({})".format(r["run"], kind, path))
+    out = os.path.join(work, "results", "Synthetic_Multimodality_Mamba")
+    with open(os.path.join(out, "report.txt")) as f:
+        report = f.read()
+    want = ["Confusion matrix (run:{})".format(r) for r in
+            range(RUNLOOP_RUNS)] + ["Agregated results", "Kappa: "]
+    if not all(x in report for x in want):
+        raise Failed("report.txt lacks a run's report or the aggregate")
+    for r in range(RUNLOOP_RUNS):
+        for name in ("Prediction_run{}.png", "Prediction_All_run{}.png"):
+            shape = read_png(os.path.join(out, name.format(r))).shape
+            if shape != (h, w, 3):
+                raise Failed("{} decodes to {}".format(name.format(r),
+                                                       shape))
+    print("[runloop] files: {} checkpoints, report and {} map PNGs of "
+          "({}, {}, 3)".format(2 * RUNLOOP_RUNS, 2 * RUNLOOP_RUNS, h, w),
+          flush=True)
+    _check_counts(counts, steps, "runloop")
+
+    # run 1's best file: bit for bit the best state, then served back
+    run = results[-1]
+    best_path = os.path.join(work, run["best_checkpoint"])
+    size = os.path.getsize(best_path)
+    model = trainers[-1].model
+    t0 = time.perf_counter()
+    restored = ckpt.restore_state_dict(best_path, model)
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = trainers[-1]._save(trainers[-1].best_state, "best_epoch", 9,
+                               "rewrite", 0, 0.0)
+    t_write = time.perf_counter() - t0
+    off = [k for k, v in trainers[-1].best_state.items()
+           if not torch.equal(restored[k], v)]
+    print("[runloop] checkpoint {} bytes, write {:.3f} s, read {:.3f} s "
+          "({})".format(size, t_write, t_read, card), flush=True)
+    if off or set(restored) != set(trainers[-1].best_state):
+        raise Failed("the best file differs from the best state: {}".format(
+            off[:5]))
+    os.remove(again)
+    gt_path = os.path.join(work, "test_gt_run{}.npy".format(run["run"]))
+    np.save(gt_path, splits[-1][1])
+    requests = [{"gt": gt_path}] * RUNLOOP_REQUESTS + [{"cmd": "quit"}]
+    serve = cli.build_parser().parse_args([
+        "--dataset", "Synthetic", "--folder", tmp, "--model",
+        "Multimodality_Mamba", "--bf16", "--serve", "--restore", best_path])
+    in_s = io.StringIO("\n".join(json.dumps(r) for r in requests) + "\n")
+    out_s = io.StringIO()
+    _build.launches.clear()
+    served = cli.run_serve(serve, in_stream=in_s, out_stream=out_s)
+    serve_counts = dict(_build.launches)
+    resps = [json.loads(l) for l in out_s.getvalue().splitlines() if l]
+    windows = (h - 8) * (w - 8)
+    for r in resps:
+        print("[runloop] restored serving: {} ({:.0f} windows/s; {})".format(
+            json.dumps(r), windows / r["seconds"] if r.get("ok") else 0,
+            card), flush=True)
+    if served != RUNLOOP_REQUESTS or not all(r.get("ok") for r in resps):
+        raise Failed("--serve --restore did not answer {} requests".format(
+            RUNLOOP_REQUESTS))
+    mismatch = [(r[k], run[k]) for r in resps for k in ("OA", "AA", "Kappa")
+                if r[k] != run[k]]
+    print("[runloop] served OA {} AA {} Kappa {} against run {}'s {} {} {}: "
+          "{}".format(resps[0]["OA"], resps[0]["AA"], resps[0]["Kappa"],
+                      run["run"], run["OA"], run["AA"], run["Kappa"],
+                      "equal" if not mismatch else "DIFFERENT"), flush=True)
+    print("[runloop] restored serving launches {}".format(
+        json.dumps(serve_counts)), flush=True)
+    if mismatch:
+        raise Failed("the restored model's OA / AA / Kappa differ from the "
+                     "run's: {}".format(mismatch))
+    missing = [k for k in FORWARD if serve_counts.get(k, 0) <= 0]
+    if missing:
+        raise Failed("restored serving never launched {}".format(missing))
+
+    # the card's default algorithms are not bitwise repeatable (two
+    # unbroken 3-epoch runs part by ~1e-2 of a tensor's largest entry), so
+    # resume is held under the deterministic ones; the default spread and
+    # the default resumed run's distance are printed beside it
+    for deterministic in (True, False):
+        start, spread, diff, unbroken, resumed = _resume_check(
+            os.path.join(tmp, "resume{}".format(int(deterministic))), scene,
+            state, deterministic)
+        print("[runloop] resume (float32, {} algorithms): epoch losses "
+              "unbroken {} resumed from epoch {} {}; largest relative "
+              "difference {:.3e}, two unbroken runs {:.3e}{}".format(
+                  "deterministic" if deterministic else "default", unbroken,
+                  start, resumed, diff, spread, " (limit {:g})".format(
+                      RESUME_RTOL) if deterministic else ""), flush=True)
+        if deterministic and (start != RESUME_SAVED or diff > RESUME_RTOL):
+            raise Failed("the resumed run parts from the unbroken one")
+    return counts
+
+
 def phase_zoo(tmp):
     """The zoo's --serve path at full width; returns each model's kernel
     launches."""
@@ -1122,6 +1402,7 @@ def phase_zoo_crop(tmp):
     """Each zoo model on a 12 x 64 crop: card float32 and bf16 against the
     CPU's float32 plain path, the flagship crop's limits."""
     import numpy as np
+    import torch
 
     from vit_cnn_tpu_torch.data import get_dataset
     from vit_cnn_tpu_torch.infer.fullscene import full_scene_probabilities
@@ -1139,12 +1420,18 @@ def phase_zoo_crop(tmp):
                                      n_bands=n_bands)
             model.load_state_dict(state)
             model.to(device).eval()
-            selects = []          # MHST: every head-select decision
+            # MHST: every head-select decision; S2EFT: its band gate's
+            # decisions g >= 0.4, one (windows, bands) block a band call
+            selects = []
             for m in model.modules():
                 if hasattr(m, "head_select"):
                     m.head_select.register_forward_hook(
                         lambda mod, a, out: selects.append(
                             (out > 0).cpu().flatten()))
+                if hasattr(m, "gate_conv"):
+                    m.gate_conv.register_forward_hook(
+                        lambda mod, a, out: selects.append(
+                            (torch.sigmoid(out) >= 0.4)[..., 0].cpu()))
             probs = full_scene_probabilities(model, img1, img2,
                                              dict(hp, bf16=bf16))
             sel = (np.concatenate([x.numpy() for x in selects]) if selects
@@ -1167,11 +1454,27 @@ def phase_zoo_crop(tmp):
                   name, d32, CROP_TOL * scale, d16, agree16,
                   cpu[inner].shape[0] * cpu[inner].shape[1]), flush=True)
         if sel_cpu is not None:
-            print("[zoo-crop] {}: head selections differing from the CPU's: "
-                  "card f32 {} of {}, card bf16 {} of {}".format(
-                      name, int((sel_f32 != sel_cpu).sum()), sel_cpu.size,
+            print("[zoo-crop] {}: {} differing from the CPU's: card f32 {} "
+                  "of {}, card bf16 {} of {}".format(
+                      name, "gate decisions (g >= 0.4)" if name == "S2EFT"
+                      else "head selections",
+                      int((sel_f32 != sel_cpu).sum()), sel_cpu.size,
                       int((sel_b16 != sel_cpu).sum()), sel_cpu.size),
                   flush=True)
+        if name == "S2EFT":
+            # the bf16 map's largest difference where a window's gate
+            # flipped and where it did not (one band: windows row-major)
+            rows, cols = 12 - p + 1, 64 - p + 1
+            flipped = (sel_b16 != sel_cpu)[:rows * cols].any(axis=1) \
+                .reshape(rows, cols)
+            d = np.abs(b16 - cpu)[inner].max(axis=-1)
+            print("[zoo-crop] S2EFT bf16: {} of {} windows with a flipped "
+                  "gate, max|diff| {:.3e} there, {:.3e} in the others "
+                  "(max|cpu| {:.3e})".format(
+                      int(flipped.sum()), flipped.size,
+                      float(d[flipped].max()) if flipped.any() else 0.0,
+                      float(d[~flipped].max()) if (~flipped).any() else 0.0,
+                      float(np.abs(cpu).max())), flush=True)
         if d32 > CROP_TOL * scale or agree16 < 0.99:
             failed.append(name)
     if failed:
@@ -1204,12 +1507,17 @@ def main():
         phase_adjoints(rows)
         sweep_counts = phase_variants(rows)
         with tempfile.TemporaryDirectory() as tmp:
-            counts, _, state = phase_slice(tmp)
-            phase_crop(tmp, state)
-            train_counts, steady = phase_train(tmp, state)
-            phase_train_crop(tmp, state)
-            zoo_counts = phase_zoo(tmp)
-            phase_zoo_crop(tmp)
+            os.chdir(tmp)       # the CLI's ./checkpoints and ./results
+            try:
+                counts, _, state = phase_slice(tmp)
+                phase_crop(tmp, state)
+                train_counts, steady = phase_train(tmp, state)
+                phase_train_crop(tmp, state)
+                runloop_counts = phase_runloop(tmp, state, card)
+                zoo_counts = phase_zoo(tmp)
+                phase_zoo_crop(tmp)
+            finally:
+                os.chdir(here)
     except Failed as e:
         print("chip_smoke: FAILED: {}".format(e), file=sys.stderr)
         return 1
@@ -1258,10 +1566,11 @@ def main():
     # launches: the flagship forward kernels' count from its serving run,
     # the adjoints' from the training run, K8 and K9 from the zoo's
     # serving runs, the variants' from the sweep (each run's counts were
-    # set to 0 just before it); launches_by_path has all four paths
+    # set to 0 just before it); launches_by_path has all five paths
     zoo = {k: sum(c.get(k, 0) for c in zoo_counts.values())
            for k in sources}
-    paths = {"serve": counts, "train": train_counts, "serve_zoo": zoo,
+    paths = {"serve": counts, "train": train_counts,
+             "runloop": runloop_counts, "serve_zoo": zoo,
              "sweep": sweep_counts}
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
                   launches=paths["train" if name in ADJOINTS else

@@ -1,9 +1,12 @@
 """The port stands alone: no module of vit_cnn_tpu_torch, and not
 chip_smoke.py, imports jax, flax or the JAX package vit_cnn_tpu (not even
-its numpy-only modules), so the port ships without the JAX tree. Its own
-copies of the dataset registry, the loaders, the sampling helpers and the
-metrics give what the JAX package's give: the Synthetic scene and a .mat
-scene bit for bit, the metrics and both sampling helpers exactly.
+its numpy-only modules), nor scikit-learn, msgpack, PIL or matplotlib,
+which the GPU host lacks; so the port ships without the JAX tree. Its own
+copies of the dataset registry, the loaders, the sampling helpers, the
+metrics, the report and the palette give what the JAX package's give: the
+Synthetic scene and a .mat scene bit for bit, the metrics and both
+sampling helpers exactly, and the report and palette modules are the JAX
+files byte for byte.
 """
 
 import ast
@@ -21,7 +24,10 @@ from vit_cnn_tpu_torch.data import registry, sampling
 from vit_cnn_tpu_torch.metrics import classification
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "vit_cnn_tpu", "sklearn")
+FORBIDDEN = ("jax", "jaxlib", "flax", "vit_cnn_tpu", "sklearn", "msgpack",
+             "PIL", "matplotlib")
+#: the port's byte-identical copies of JAX package modules
+COPIES = ("metrics/report.py", "utils/palette.py")
 
 
 def _port_sources():
@@ -66,8 +72,9 @@ def test_source_scan_finds_no_jax_import():
 
 def test_every_port_module_imports_without_jax():
     """Every module of the package, found by pkgutil.walk_packages and
-    imported in a fresh process, leaves none of jax, flax, vit_cnn_tpu or
-    scikit-learn (absent on the GPU host) in sys.modules."""
+    imported in a fresh process, leaves none of jax, flax, vit_cnn_tpu,
+    scikit-learn, msgpack, PIL or matplotlib (the last five absent on the
+    GPU host) in sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vit_cnn_tpu_torch as pkg\n"
@@ -159,3 +166,11 @@ def test_sampling_helpers_are_the_jax_helpers():
         np.testing.assert_array_equal(
             sampling.compute_imf_weights(gt, **kw),
             jax_sampling.compute_imf_weights(gt, **kw))
+
+
+def test_report_and_palette_are_the_jax_files():
+    for rel in COPIES:
+        with open(os.path.join(ROOT, "vit_cnn_tpu", rel), "rb") as f:
+            want = f.read()
+        with open(os.path.join(ROOT, "vit_cnn_tpu_torch", rel), "rb") as f:
+            assert f.read() == want, rel

@@ -353,10 +353,10 @@ def test_unported_training_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_optimizer(OptimizerSpec(name="sgd"), [torch.nn.Parameter(
             torch.zeros(2))])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sample_gt(gt, 0.5, mode="disjoint")
+    with pytest.raises(ValueError, match="not implemented"):
+        sample_gt(gt, 0.5, mode="spatial")
     model = MultimodalityMamba(5, 5, 1, 32, 4)
     pipe = patches.PatchPipeline(img1, img2, gt, 5, [0], 4)
     hp = {"batch_size": 2, "epoch": 1, "lr": 1e-3, "weights": np.ones(4)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(model, hp, pipe, save_checkpoints=True)
+        Trainer(model, dict(hp, loss="focal"), pipe)

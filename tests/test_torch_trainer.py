@@ -70,7 +70,8 @@ def test_two_epoch_trajectory_matches_jax(scene):
     pipe = PatchPipeline(img1, img2, gt, 9, [0], 5)
     pipe.to_compute_dtype(torch.float64)
     assert len(pipe) % 32                         # a padded last batch
-    trainer = Trainer(model.double(), hp, pipe, seed=3)
+    trainer = Trainer(model.double(), hp, pipe, seed=3,
+                      save_checkpoints=False)
     trainer.fit()
     assert len(trainer.log.losses) == 2
     np.testing.assert_allclose(trainer.log.losses, jtrainer.log.losses,
@@ -89,7 +90,8 @@ def test_fit_keeps_the_best_epoch_with_ties_to_the_later(scene):
 
     init_parameters(model, 0)
     pipe = PatchPipeline(img1, img2, gt, 9, [0], 5)
-    trainer = Trainer(model, hp, pipe, val_pipeline=pipe, seed=0)
+    trainer = Trainer(model, hp, pipe, val_pipeline=pipe, seed=0,
+                      save_checkpoints=False)
     trainer.validate = lambda: 0.5                # a tie every epoch
     states = []
     best = trainer.fit(on_epoch_end=lambda e, loss, m: states.append(
@@ -99,7 +101,8 @@ def test_fit_keeps_the_best_epoch_with_ties_to_the_later(scene):
         torch.testing.assert_close(v, states[-1][k], rtol=0, atol=0)
 
 
-def test_cli_trains_on_the_cpu(scene, tmp_path, capsys):
+def test_cli_trains_on_the_cpu(scene, tmp_path, capsys, monkeypatch):
+    monkeypatch.chdir(tmp_path)           # ./checkpoints and ./results
     args = build_parser().parse_args([
         "--dataset", "Synthetic", "--folder", str(tmp_path), "--device",
         "cpu", "--epoch", "1", "--batch_size", "32", "--training_sample",
@@ -115,8 +118,8 @@ def test_cli_trains_on_the_cpu(scene, tmp_path, capsys):
 
 def test_cli_without_serve_trains(monkeypatch):
     seen = []
-    monkeypatch.setattr("vit_cnn_tpu_torch.cli.run_train",
-                        lambda args: seen.append(args.epoch) or {})
+    monkeypatch.setattr("vit_cnn_tpu_torch.cli.run_experiments",
+                        lambda args: seen.append(args.epoch) or [])
     main(["--dataset", "Synthetic", "--device", "cpu", "--epoch", "3"])
     assert seen == [3]
 

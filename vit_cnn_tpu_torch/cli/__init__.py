@@ -1,41 +1,61 @@
-"""Command line of the port: one training run, or the ``--serve`` daemon.
+"""Command line of the port: the run loop of experiments, or the
+``--serve`` daemon.
 
-Port of :mod:`vit_cnn_tpu.cli`, with the flags it reads under the same
-names and defaults. Run as::
+Port of :mod:`vit_cnn_tpu.cli`, with its flags under the same names,
+types and defaults (those left out are listed in :data:`LEFT_OUT`). Run
+as::
 
-  python -m vit_cnn_tpu_torch --dataset Synthetic --bf16 \\
+  python -m vit_cnn_tpu_torch --dataset Synthetic --bf16 --runs 2 \\
       --epoch 10 --batch_size 1024 --flip_augmentation     # train
-  python -m vit_cnn_tpu_torch --dataset Synthetic \\
-      --model MHST --bf16 --serve                           # serve
+  python -m vit_cnn_tpu_torch --dataset Synthetic --bf16 --serve \\
+      --restore checkpoints/.../best_epoch/<file>.msgpack   # serve
 
-Without ``--serve`` the run is one run of the JAX ``run_experiments``:
-split, model, pipelines, ``Trainer.fit``, the full-scene map of the best
-weights, OA/AA/Kappa, and one JSON line on stdout. Status lines go to
-stderr, so stdout carries only JSON. ``--runs`` > 1 aggregation, the
-artifact writer, ``--restore`` (a JAX ``best.msgpack``), profiling and
-pretraining are later items of ROADMAP Queue 1.
+Without ``--serve``, :func:`run_experiments` is the JAX run loop
+(ref: main.py:377-552): for each of ``--runs`` runs a seeded split,
+class balancing, the train / val pipelines, ``Trainer.fit`` (from
+``--restore`` when given: a fine-tuning start) with best-epoch and
+final-epoch checkpoint files under ``./checkpoints`` of the working
+directory, the full-scene map of the best weights, OA/AA/Kappa, the
+artifacts (PNG maps, the confusion matrix, the scalar stream) and the
+report under ``<out_dir>/<dataset>_<model>/``; then the aggregated report
+(mean ± std). stdout carries only JSON: one line a run, and with
+``--runs`` > 1 an aggregated line. Status lines and the text reports go
+to stderr; the reports also go to ``report.txt``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import random
+import os
 import sys
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..data import compute_imf_weights, dataset_names, get_dataset
+from ..data.io import open_file
 from ..data.sampling import sample_gt
 from ..infer.fullscene import full_scene_probabilities
 from ..infer.server import SceneServer
 from ..metrics import metrics
+from ..metrics.report import show_results
 from ..models.registry import SERVE_ONLY, get_model, model_names
 from ..nn.layers import init_parameters
 from ..pipeline.patches import AugmentConfig, PatchPipeline
+from ..train.checkpoint import restore_state_dict
 from ..train.loop import Trainer
+from ..utils import profiling
+from ..utils.palette import build_palette, convert_to_color
+from ..utils.seeding import seed_everything
+from ..utils.viz import ArtifactWriter
+
+#: flags of the JAX command line the port does not take yet (ROADMAP
+#: Queue 1; --download is not to port)
+LEFT_OUT = ("applyPCA", "radiation_augmentation", "mixture_augmentation",
+            "download", "n_devices", "no_mesh", "debug_nans", "pretrain",
+            "cos", "queue_size", "moco_momentum", "moco_temperature")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,9 +69,19 @@ def build_parser() -> argparse.ArgumentParser:
                              ", ".join(model_names()))
     parser.add_argument("--folder", type=str, default="./Datasets/",
                         help="Folder where the datasets are stored.")
+    parser.add_argument("--cuda", type=int, default=0,
+                        help="Accepted for reference-CLI compatibility; "
+                             "--device selects the card")
+    parser.add_argument("--runs", type=int, default=10,
+                        help="Number of runs (default: 10)")
+    parser.add_argument("--restore", type=str, default=None,
+                        help="Checkpoint (.msgpack, the port's or the JAX "
+                             "package's) to start training from, or to "
+                             "serve")
     parser.add_argument("--seed", type=int, default=1,
-                        help="Seed of the random initial weights, and of "
-                             "training's shuffle and augmentation draws")
+                        help="Seed of --serve's random weights without "
+                             "--restore (the runs take theirs from the "
+                             "run index, as the reference does)")
     group_dataset = parser.add_argument_group("Dataset")
     group_dataset.add_argument(
         "--train_val_split", type=float, default=1,
@@ -63,31 +93,56 @@ def build_parser() -> argparse.ArgumentParser:
              "'random_fixednumber', the per-class training count")
     group_dataset.add_argument(
         "--sampling_mode", type=str, default="random_fixednumber",
-        help="random | random_fixednumber")
+        help="random | fixed | disjoint | random_fixednumber")
+    group_dataset.add_argument(
+        "--train_set", type=str, default=None,
+        help="Path to the train ground truth (supersedes --sampling_mode)")
+    group_dataset.add_argument(
+        "--test_set", type=str, default=None,
+        help="Path to the test set (by default the entire ground truth "
+             "minus the training)")
     group_train = parser.add_argument_group("Training")
     group_train.add_argument("--epoch", type=int, default=None,
                              help="Training epochs (model default if absent)")
+    group_train.add_argument("--patch_size", type=int, default=None,
+                             help="Size of the spatial neighbourhood")
     group_train.add_argument("--lr", type=float, default=None,
                              help="Learning rate (model default if absent)")
     group_train.add_argument("--class_balancing", action="store_true",
                              help="Inverse median frequency class balancing")
     group_train.add_argument("--batch_size", type=int, default=None,
                              help="Batch size (model default if absent)")
+    group_train.add_argument("--test_stride", type=int, default=1,
+                             help="Sliding window stride during inference "
+                                  "(only 1 is ported)")
     group_train.add_argument("--flip_augmentation", action="store_true",
                              help="Random flips (if patch_size > 1)")
     group_train.add_argument("--log_every", type=int, default=10,
                              help="Print loss/val every N epochs (0 = silent)")
-    parser.add_argument("--bf16", action="store_true",
-                        help="bfloat16 compute policy for the model")
-    parser.add_argument("--infer_chunk", type=int, default=8192,
-                        help="Windows per inference band")
-    parser.add_argument("--serve", action="store_true",
-                        help="persistent serving mode: answer JSON-line "
-                             "full-scene requests on stdin (see "
-                             "infer/server.py for the protocol)")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device; 'cuda' raises when CUDA is "
-                             "absent (the CPU runs only on --device cpu)")
+    parser.add_argument("--with_exploration", action="store_true",
+                        help="Write the per-class mean spectra")
+    group_run = parser.add_argument_group("Run")
+    group_run.add_argument("--out_dir", type=str, default="./results",
+                           help="Artifact directory (replaces Visdom)")
+    group_run.add_argument("--strict_seed_parity", type=int, default=1,
+                           help="1 (default): reproduce the reference's "
+                                "constant seed[2] model seeding "
+                                "(ref: main.py:378); 0: per-run seeds")
+    group_run.add_argument("--profile_dir", type=str, default=None,
+                           help="Write a torch.profiler trace of run 0's "
+                                "first training epoch to this directory")
+    group_run.add_argument("--bf16", action="store_true",
+                           help="bfloat16 compute policy for the model")
+    group_run.add_argument("--infer_chunk", type=int, default=8192,
+                           help="Windows per inference band")
+    group_run.add_argument("--serve", action="store_true",
+                           help="persistent serving mode: answer JSON-line "
+                                "full-scene requests on stdin (see "
+                                "infer/server.py for the protocol) with "
+                                "--restore's weights")
+    group_run.add_argument("--device", type=str, default="cuda",
+                           help="torch device; 'cuda' raises when CUDA is "
+                                "absent (the CPU runs only on --device cpu)")
     return parser
 
 
@@ -100,31 +155,11 @@ def _device(name: str) -> torch.device:
     return device
 
 
-def run_serve(args, in_stream=None, out_stream=None,
-              state_dict: Optional[Dict[str, torch.Tensor]] = None) -> int:
-    """Build the model once on ``--device``, load ``state_dict`` (the
-    seeded random init of ``--seed`` without one), then answer JSON-line
-    requests until EOF or quit. Returns the number of requests served."""
-    device = _device(args.device)
-    (img1, img2, gt, label_values, ignored_labels, rgb_bands,
-     palette) = get_dataset(args.dataset, args.folder)
-    model, spec, hp = get_model(args.model, **_hyperparams(
-        args, img1, img2, label_values, ignored_labels))
-    if state_dict is None:
-        init_parameters(model, args.seed)
-        print("# --serve without weights: serving an UNTRAINED {}".format(
-            args.model), file=sys.stderr, flush=True)
-    else:
-        model.load_state_dict(state_dict, strict=True)
-    model.to(device).eval()
-
-    server = SceneServer(model, hp, ignored_labels=ignored_labels,
-                         chunk=args.infer_chunk)
-    print('# ready: {} on {} ({}) — one JSON request per line, '
-          '{{"cmd": "quit"}} ends'.format(args.model, args.dataset, device),
-          file=sys.stderr, flush=True)
-    return server.loop(in_stream or sys.stdin, out_stream or sys.stdout,
-                       img1, img2)
+def _check_stride(args) -> None:
+    if args.test_stride != 1:
+        raise NotImplementedError(
+            "--test_stride {}: only stride 1 is ported (ROADMAP Queue 1 #5, "
+            "'stride > 1')".format(args.test_stride))
 
 
 def _hyperparams(args, img1, img2, label_values, ignored_labels):
@@ -137,37 +172,142 @@ def _hyperparams(args, img1, img2, label_values, ignored_labels):
     return hyperparams
 
 
-def run_train(args, state_dict: Optional[Dict[str, torch.Tensor]] = None
-              ) -> Dict:
-    """One run of the JAX ``run_experiments`` (run 0): the split (seed 0,
-    numpy and python RNGs seeded with ``--seed`` first), ``get_model``,
-    the train / val pipelines, ``Trainer.fit`` on ``--device`` from
-    ``state_dict`` (the seeded random init of ``--seed`` without one), the
-    full-scene map of the best weights in a model of their own, and
-    OA/AA/Kappa against the test split. Prints one JSON line on stdout and
-    returns it as a dict."""
-    if args.model in SERVE_ONLY:
-        raise NotImplementedError(
-            "{} is ported for --serve only: training the transformer zoo "
-            "is ROADMAP Queue 1, 'transformer zoo training'".format(
-                args.model))
+def run_serve(args, in_stream=None, out_stream=None,
+              state_dict: Optional[Dict[str, torch.Tensor]] = None) -> int:
+    """Build the model once, load ``--restore`` into it strictly (or
+    ``state_dict``; the seeded random init of ``--seed`` without either)
+    before it goes to ``--device``, then answer JSON-line requests until
+    EOF or quit. Returns the number of requests served."""
     device = _device(args.device)
+    _check_stride(args)
     (img1, img2, gt, label_values, ignored_labels, rgb_bands,
      palette) = get_dataset(args.dataset, args.folder)
-    n_classes = len(label_values)
-    random.seed(args.seed)
-    np.random.seed(args.seed)
-    train_gt, test_gt = sample_gt(gt, args.training_sample,
-                                  mode=args.sampling_mode, seed=0)
-    train_gt, test_gt = train_gt.astype(np.int64), test_gt.astype(np.int64)
+    model, spec, hp = get_model(args.model, **_hyperparams(
+        args, img1, img2, label_values, ignored_labels))
+    if args.restore and state_dict is not None:
+        raise ValueError("--restore and a state_dict: pass one")
+    if args.restore:
+        model.load_state_dict(restore_state_dict(args.restore, model),
+                              strict=True)
+    elif state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    else:
+        init_parameters(model, args.seed)
+        print("# --serve without --restore: serving an UNTRAINED {}".format(
+            args.model), file=sys.stderr, flush=True)
+    model.to(device).eval()
+
+    server = SceneServer(model, hp, ignored_labels=ignored_labels,
+                         chunk=args.infer_chunk)
+    print('# ready: {} on {} ({}) — one JSON request per line, '
+          '{{"cmd": "quit"}} ends'.format(args.model, args.dataset, device),
+          file=sys.stderr, flush=True)
+    return server.loop(in_stream or sys.stdin, out_stream or sys.stdout,
+                       img1, img2)
+
+
+def _load_gt_pair(train_set: Optional[str], test_set: Optional[str],
+                  gt: np.ndarray, sampling_mode: str, sample_pct: float,
+                  split_seed: int):
+    """The train / test ground truths of a run (ref: main.py:379-394,
+    the TRLabel / TSLabel fixed-split path)."""
+    if train_set is not None and test_set is not None:
+        train_gt = np.asarray(open_file(train_set)["TRLabel"])
+        test_gt = np.asarray(open_file(test_set)["TSLabel"])
+    elif train_set is not None:
+        train_gt = np.asarray(open_file(train_set))
+        test_gt = np.copy(gt)
+        w, h = test_gt.shape
+        test_gt[(train_gt > 0)[:w, :h]] = 0
+    elif test_set is not None:
+        test_gt = np.asarray(open_file(test_set))
+        train_gt, _ = sample_gt(gt, sample_pct, mode=sampling_mode,
+                                seed=split_seed)
+    else:
+        train_gt, test_gt = sample_gt(gt, sample_pct, mode=sampling_mode,
+                                      seed=split_seed)
+    return train_gt.astype(np.int64), test_gt.astype(np.int64)
+
+
+class _Setup:
+    """What every run of :func:`run_experiments` shares: the device, the
+    scene, the palette, the artifact writer (which has written the scene's
+    own artifacts) and the command line's hyperparameters."""
+
+    def __init__(self, args):
+        if args.model in SERVE_ONLY:
+            raise NotImplementedError(
+                "{} is ported for --serve only: training the transformer "
+                "zoo is ROADMAP Queue 1, 'transformer zoo training'".format(
+                    args.model))
+        self.device = _device(args.device)
+        _check_stride(args)
+        (self.img1, self.img2, self.gt, self.label_values,
+         self.ignored_labels, rgb_bands, palette) = get_dataset(
+            args.dataset, args.folder)
+        self.palette = palette or build_palette(len(self.label_values))
+        self.writer = ArtifactWriter(os.path.join(
+            args.out_dir, "{}_{}".format(args.dataset, args.model)))
+        self.writer.save_dataset_rgb(self.img1, rgb_bands)
+        self.writer.save_lidar(self.img2)
+        self.writer.save_map(convert_to_color(self.gt, self.palette),
+                             "Ground truth")
+        if args.with_exploration:
+            self.writer.explore_spectrums(self.img1, self.gt,
+                                          self.label_values,
+                                          self.ignored_labels)
+        self.hyperparams = _hyperparams(args, self.img1, self.img2,
+                                        self.label_values,
+                                        self.ignored_labels)
+
+
+def _run_seeds(args, run: int):
+    """(model seed, split seed) of run ``run`` (ref: main.py:378): with
+    ``--strict_seed_parity`` every run's model seed is seeds[2] (the last
+    seed for fewer than 3 runs, where the reference fails)."""
+    seeds = list(range(args.runs))
+    parity_seed = seeds[2] if len(seeds) > 2 else seeds[-1]
+    return (parity_seed if args.strict_seed_parity else seeds[run]), \
+        seeds[run]
+
+
+def run_train(args, state_dict: Optional[Dict[str, torch.Tensor]] = None,
+              run: int = 0) -> Dict:
+    """Run ``run`` of :func:`run_experiments`: seed everything with the
+    run's model seed, split with its split seed, build the model (from
+    ``state_dict``, else the seeded random init of the model seed; then
+    ``--restore`` over it), train on ``--device`` writing the checkpoint
+    files, map the scene with the best weights in a model of their own,
+    score it against the test split, write the artifacts and the report.
+    Prints one JSON line on stdout and returns it as a dict."""
+    return _run(args, state_dict, run, _Setup(args))[0]
+
+
+def _run(args, state_dict, run: int, setup: _Setup):
+    """:func:`run_train` on a given setup; returns (the JSON dict, the
+    run's metrics dict)."""
+    img1, img2, gt = setup.img1, setup.img2, setup.gt
+    n_classes = len(setup.label_values)
+    writer, palette = setup.writer, setup.palette
+    model_seed, split_seed = _run_seeds(args, run)
+    seed_everything(model_seed)
+    train_gt, test_gt = _load_gt_pair(
+        args.train_set, args.test_set, gt, args.sampling_mode,
+        args.training_sample, split_seed=split_seed)
     print("{} samples selected (over {})".format(
         np.count_nonzero(train_gt), np.count_nonzero(gt)),
         file=sys.stderr, flush=True)
+    print("Running an experiment with the {} model run {}/{}".format(
+        args.model, run + 1, args.runs), file=sys.stderr, flush=True)
+    writer.save_map(convert_to_color(train_gt, palette),
+                    "Train ground truth", run=run)
+    writer.save_map(convert_to_color(test_gt, palette), "Test ground truth",
+                    run=run)
 
-    hp = _hyperparams(args, img1, img2, label_values, ignored_labels)
+    hp = dict(setup.hyperparams)
     if args.class_balancing:
         hp["weights"] = compute_imf_weights(train_gt, n_classes,
-                                            ignored_labels)
+                                            setup.ignored_labels)
     model, spec, hp = get_model(args.model, **hp)
     if args.train_val_split != 1:
         train_gt, val_gt = sample_gt(train_gt, args.train_val_split,
@@ -175,6 +315,7 @@ def run_train(args, state_dict: Optional[Dict[str, torch.Tensor]] = None
     else:
         val_gt = sample_gt(train_gt, 0.95, mode="random")[1]
 
+    device = setup.device
     aug = AugmentConfig(flip=hp.get("flip_augmentation", False),
                         radiation=hp.get("radiation_augmentation", False),
                         mixture=hp.get("mixture_augmentation", False))
@@ -185,12 +326,37 @@ def run_train(args, state_dict: Optional[Dict[str, torch.Tensor]] = None
     val_pipe = PatchPipeline(img1, img2, val_gt, hp["patch_size"],
                              hp["ignored_labels"], n_classes, device=device)
     if state_dict is None:
-        init_parameters(model, args.seed)
+        init_parameters(model, model_seed)
     else:
         model.load_state_dict(state_dict, strict=True)
+    if args.restore:
+        model.load_state_dict(restore_state_dict(args.restore, model),
+                              strict=True)
     model.to(device)
-    trainer = Trainer(model, hp, pipe, val_pipeline=val_pipe, seed=args.seed)
-    best = trainer.fit(log_every=args.log_every)
+    trainer = Trainer(model, hp, pipe, val_pipeline=val_pipe,
+                      seed=model_seed, savename=args.model)
+
+    trace = args.profile_dir and run == 0
+    prof = profiling.start_trace(args.profile_dir) if trace else None
+
+    def on_epoch_end(epoch, loss, metric):
+        nonlocal prof
+        writer.log_scalars(epoch, {"loss": loss, "val_metric": metric},
+                           run=run)
+        if prof is not None:                  # the trace covers epoch 1
+            profiling.stop_trace(prof, args.profile_dir)
+            prof = None
+
+    try:
+        best = trainer.fit(run=run, dataset_name=args.dataset,
+                           log_every=args.log_every,
+                           on_epoch_end=on_epoch_end)
+    except KeyboardInterrupt:
+        best = {k: v.detach().to("cpu", copy=True)
+                for k, v in model.state_dict().items()}
+    finally:
+        if prof is not None:
+            profiling.stop_trace(prof, args.profile_dir)
 
     served, _, _ = get_model(args.model, **hp)
     served.load_state_dict(best, strict=True)
@@ -198,24 +364,64 @@ def run_train(args, state_dict: Optional[Dict[str, torch.Tensor]] = None
     probabilities = full_scene_probabilities(served, img1, img2, hp,
                                              chunk=args.infer_chunk)
     prediction = np.argmax(probabilities, axis=-1)
-    m = metrics(prediction, test_gt, ignored_labels=hp["ignored_labels"],
-                n_classes=n_classes)
+    run_metrics = metrics(prediction, test_gt,
+                          ignored_labels=hp["ignored_labels"],
+                          n_classes=n_classes)
+
+    writer.save_map(convert_to_color(prediction, palette),
+                    "Prediction_All run{}".format(run))
+    mask = np.isin(gt, setup.ignored_labels)
+    prediction[mask] = 0
+    writer.save_map(convert_to_color(prediction, palette),
+                    "Prediction run{}".format(run))
+    writer.save_confusion_matrix(run_metrics["Confusion matrix"], run=run)
+    writer.save_report(show_results(run, run_metrics,
+                                    label_values=setup.label_values,
+                                    file=sys.stderr))
+
     log = trainer.log
     result = {
-        "model": args.model, "dataset": args.dataset, "device": str(device),
+        "run": run, "model": args.model, "dataset": args.dataset,
+        "device": str(device), "model_seed": model_seed,
         "train_samples": len(pipe), "epochs": len(log.losses),
         "losses": log.losses, "val_accuracies": log.val_accuracies,
         "patches_per_s": len(pipe) * len(log.losses)
         / max(sum(log.epoch_seconds), 1e-9),
-        "OA": float(m["Accuracy"]), "AA": float(m["AA"]),
-        "Kappa": float(m["Kappa"]),
+        "OA": float(run_metrics["Accuracy"]), "AA": float(run_metrics["AA"]),
+        "Kappa": float(run_metrics["Kappa"]),
+        "best_checkpoint": trainer.best_checkpoint,
+        "final_checkpoint": trainer.final_checkpoint,
     }
     print(json.dumps(result), flush=True)
-    return result
+    return result, run_metrics
+
+
+def run_experiments(args, state_dict: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> List[Dict]:
+    """The reference's run loop (ref: main.py:377-552): ``--runs`` runs of
+    :func:`run_train`, then with more than one the aggregated report and
+    one JSON line with the mean and std of OA, AA and Kappa. Returns the
+    runs' result dicts."""
+    setup = _Setup(args)
+    results, all_metrics = zip(*[_run(args, state_dict, run, setup)
+                                 for run in range(args.runs)])
+    if args.runs > 1:
+        setup.writer.save_report(show_results(
+            args.runs - 1, list(all_metrics),
+            label_values=setup.label_values,
+            agregated=True, file=sys.stderr))
+        summary = {"runs": args.runs, "model": args.model,
+                   "dataset": args.dataset}
+        for key in ("OA", "AA", "Kappa"):
+            values = [r[key] for r in results]
+            summary[key + "_mean"] = float(np.mean(values))
+            summary[key + "_std"] = float(np.std(values))
+        print(json.dumps(summary), flush=True)
+    return list(results)
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.serve:
         return run_serve(args)
-    return run_train(args)
+    return run_experiments(args)

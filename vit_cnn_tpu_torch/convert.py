@@ -25,7 +25,7 @@ output BN scale starts at zero, so init weights would hide it);
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,11 +73,14 @@ def _leaf_to_port(col: str, path, arr: np.ndarray, mod: nn.Module):
     return leaf, arr
 
 
-def flax_to_state_dict(variables: Dict, model: nn.Module
+def flax_to_state_dict(variables: Dict, model: nn.Module,
+                       expected: Optional[Dict[str, torch.Tensor]] = None
                        ) -> Dict[str, torch.Tensor]:
     """Map a flax variable tree onto ``model``'s state_dict keys, dtypes
-    and shapes (strict in both directions)."""
-    expected = model.state_dict()
+    and shapes (strict in both directions). ``expected`` names the entries
+    to fill, with their dtypes and shapes: ``model.state_dict()`` by
+    default, or a part of it (the parameters, for optimizer moments)."""
+    expected = model.state_dict() if expected is None else expected
     modules = dict(model.named_modules())
     extra = set(variables) - set(_COLLECTIONS)
     if extra:
@@ -107,15 +110,21 @@ def flax_to_state_dict(variables: Dict, model: nn.Module
     return out
 
 
-def state_dict_to_flax(model: nn.Module) -> Dict:
+def state_dict_to_flax(model: nn.Module,
+                       state: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> Dict:
     """The inverse map: ``model``'s parameters and statistics as a flax
-    variable tree of numpy arrays."""
+    variable tree of numpy arrays. ``state`` gives the values under
+    ``model``'s state_dict keys (default: ``model.state_dict()``; a host
+    copy of it, or the optimizer's moments of the parameters)."""
     modules = dict(model.named_modules())
     tree: Dict = {"params": {}, "batch_stats": {}}
-    for key, t in model.state_dict().items():
+    state = model.state_dict() if state is None else state
+    for key, t in state.items():
         prefix, _, name = key.rpartition(".")
         mod = modules[prefix]
-        arr = t.detach().float().cpu().numpy()
+        arr = t.detach().cpu()
+        arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
         col = "params"
         layout = getattr(mod, "flax_kernel", None)
         if name in ("running_mean", "running_var"):

@@ -1,8 +1,7 @@
 """Ground-truth train / test splits without scikit-learn.
 
 :func:`vit_cnn_tpu.data.sampling.sample_gt` imports scikit-learn, which
-the GPU host does not have. This is its port for the modes the training
-run uses:
+the GPU host does not have. This is its port, mode for mode:
 
 * ``random`` — the stratified split of ``sklearn.model_selection.
   train_test_split(X, train_size=..., stratify=y)`` with no random_state,
@@ -10,13 +9,16 @@ run uses:
   ``StratifiedShuffleSplit._iter_indices``, ``_approximate_mode``) and
   drawing from numpy's global RandomState as scikit-learn does, so the
   same ``np.random.seed`` gives the same split;
+* ``fixed`` — per class, the unstratified ``train_test_split(Xc,
+  train_size=...)`` (``ShuffleSplit``: one global ``permutation``, the
+  test part first);
+* ``disjoint`` — per class, the rows above the first row where more than
+  0.9 x train_size of the class lies above go to training;
 * ``random_fixednumber`` — N per class (:func:`sampling_fixed_num`, the
   reference's RNG call order).
 
 :func:`compute_imf_weights` gives the inverse-median-frequency class
 weights of ``--class_balancing``.
-
-'fixed' and 'disjoint' raise (ROADMAP Queue 1, the CLI run loop).
 """
 
 from __future__ import annotations
@@ -88,17 +90,42 @@ def _approximate_mode(class_counts: np.ndarray, n_draws: int,
     return floored.astype(int)
 
 
+def _split_sizes(n: int, train_size: float) -> Tuple[int, int]:
+    """(n_train, n_test) of scikit-learn's ``_validate_shuffle_split`` for a
+    ``train_size`` (a fraction or a count) and no test size."""
+    if isinstance(train_size, float):
+        if not 0 < train_size < 1:
+            raise ValueError("train_size={} should be a float in the (0, 1) "
+                             "range or a count".format(train_size))
+        n_train = math.floor(train_size * n)
+    else:
+        n_train = int(train_size)
+        if not 0 < n_train < n:
+            raise ValueError("train_size={} should be positive and smaller "
+                             "than the number of samples {}".format(
+                                 train_size, n))
+    if n_train == 0:
+        raise ValueError("With n_samples={} and train_size={}, the train "
+                         "set would be empty".format(n, train_size))
+    return n_train, n - n_train
+
+
+def shuffle_split(n: int, train_size: float
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """(train, test) positions of scikit-learn's unstratified
+    ``train_test_split`` of ``n`` samples (``ShuffleSplit``)."""
+    n_train, n_test = _split_sizes(n, train_size)
+    permutation = np.random.mtrand._rand.permutation(n)
+    return permutation[n_test:n_test + n_train], permutation[:n_test]
+
+
 def stratified_split(y: np.ndarray, train_size: float
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """(train, test) positions into ``y``, as scikit-learn's stratified
     ``train_test_split`` gives them (train_size a fraction or a count)."""
     rng = np.random.mtrand._rand          # scikit-learn's random_state=None
     n = len(y)
-    if isinstance(train_size, float):
-        n_train = math.floor(train_size * n)
-    else:
-        n_train = int(train_size)
-    n_test = n - n_train
+    n_train, n_test = _split_sizes(n, train_size)
     classes, y_indices, class_counts = np.unique(
         y, return_inverse=True, return_counts=True)
     if class_counts.min() < 2 or n_train < len(classes) or \
@@ -130,13 +157,35 @@ def sample_gt(gt: np.ndarray, train_size: float, mode: str = "random",
         train, test = stratified_split(gt[rows, cols].ravel(), train_size)
         for idx, out in ((train, train_gt), (test, test_gt)):
             out[rows[idx], cols[idx]] = gt[rows[idx], cols[idx]]
+    elif mode == "fixed":
+        for c in np.unique(gt):
+            if c == 0:
+                continue
+            rows, cols = np.nonzero(gt == c)
+            train, test = shuffle_split(len(rows), train_size)
+            for idx, out in ((train, train_gt), (test, test_gt)):
+                out[rows[idx], cols[idx]] = c
+    elif mode == "disjoint":
+        train_gt = np.copy(gt)
+        test_gt = np.copy(gt)
+        for c in np.unique(gt):
+            mask = gt == c
+            for x in range(gt.shape[0]):
+                first_half = np.count_nonzero(mask[:x, :])
+                second_half = np.count_nonzero(mask[x:, :])
+                total = first_half + second_half
+                if total == 0:
+                    continue
+                if first_half / total > 0.9 * train_size:
+                    break
+            mask[:x, :] = 0
+            train_gt[mask] = 0
+        test_gt[train_gt > 0] = 0
     elif mode == "random_fixednumber":
         flat = gt.reshape(-1).astype(np.int64)
         train_idx, test_idx = sampling_fixed_num(int(train_size), flat, seed)
         train_gt.reshape(-1)[train_idx] = flat[train_idx]
         test_gt.reshape(-1)[test_idx] = flat[test_idx]
     else:
-        raise NotImplementedError(
-            "sampling mode {!r} is not ported yet: ROADMAP Queue 1, the CLI "
-            "run loop".format(mode))
+        raise ValueError("{} sampling is not implemented yet.".format(mode))
     return train_gt, test_gt

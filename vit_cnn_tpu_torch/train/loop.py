@@ -14,8 +14,12 @@ Port of :class:`vit_cnn_tpu.train.loop.Trainer` (ref: model_utils.py:854-
 The model and its optimizer are the train state (no twin of
 ``train/state.py``). The epoch loss sums on the device: the host reads it
 once per epoch, so steps are queued without a host sync. ``fit`` returns
-the best-validation ``state_dict`` (host copies). Checkpoint files and
-resumable state are ROADMAP Queue 1, '--restore'.
+the best-validation ``state_dict`` (host copies) and, as the JAX loop
+does, writes the best-epoch and final-epoch checkpoint files
+(train/checkpoint.py) under ``checkpoint_root``, ``./checkpoints`` of the
+working directory by default. ``save_resumable`` / ``restore_resumable``
+write and read the whole train state: model, optimizer moments, step,
+the shuffle's RandomState and the augmentation generator.
 """
 
 from __future__ import annotations
@@ -28,8 +32,10 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..convert import state_dict_to_flax
 from ..nn.precision import bf16_train_apply
 from ..pipeline.patches import PatchPipeline
+from . import checkpoint as ckpt
 from .losses import LOSSES
 from .optim import OptimizerSpec, build_lr_schedule, build_optimizer
 
@@ -68,11 +74,13 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, hyperparams: Dict,
                  pipeline: PatchPipeline,
                  val_pipeline: Optional[PatchPipeline] = None,
-                 seed: int = 0, save_checkpoints: bool = False):
-        if save_checkpoints:
-            raise NotImplementedError(
-                "checkpoint files are not ported yet: ROADMAP Queue 1, "
-                "'--restore'")
+                 seed: int = 0, checkpoint_root: str = "./checkpoints",
+                 savename: str = "", save_checkpoints: bool = True):
+        self.checkpoint_root = checkpoint_root
+        self.savename = savename
+        self.save_checkpoints = save_checkpoints
+        self.best_checkpoint: Optional[str] = None
+        self.final_checkpoint: Optional[str] = None
         loss = hyperparams.get("loss", "cross_entropy")
         if loss not in LOSSES:
             raise NotImplementedError(
@@ -161,17 +169,55 @@ class Trainer:
         return int(correct) / max(int(total), 1)
 
     # ------------------------------------------------------------------
-    def fit(self, log_every: int = 0,
-            on_epoch_end: Optional[Callable] = None
-            ) -> Dict[str, torch.Tensor]:
-        """Train for ``hyperparams["epoch"]`` epochs; returns the state_dict
-        of the epoch with the best metric, compared as ``abs(metric) >=
-        best`` as the JAX loop does (later epochs win ties): the val
-        accuracy, or -loss without a val pipeline."""
+    # Resumable state: the whole train state and both random streams, so a
+    # restarted run continues with the same shuffle order and augmentation
+    # draws (the JAX loop's save_resumable / restore_resumable).
+    def save_resumable(self, path: str, epoch: int) -> str:
+        rng_state = self.np_rng.get_state()
+        extra = {"epoch": epoch,
+                 "np_rng": [rng_state[0], np.asarray(rng_state[1]).tolist(),
+                            int(rng_state[2]), int(rng_state[3]),
+                            float(rng_state[4])],
+                 "generator": self.generator.get_state().tolist()}
+        return ckpt.save_train_state(path, self.model, self.optimizer,
+                                     self.steps_done, extra)
+
+    def restore_resumable(self, path: str) -> int:
+        """Returns the epoch to resume FROM (0 without metadata)."""
+        self.steps_done, extra = ckpt.restore_train_state(
+            path, self.model, self.optimizer)
+        if not extra:
+            return 0
+        s = extra["np_rng"]
+        self.np_rng.set_state((s[0], np.asarray(s[1], dtype=np.uint32),
+                               int(s[2]), int(s[3]), float(s[4])))
+        self.generator.set_state(torch.tensor(extra["generator"],
+                                              dtype=torch.uint8))
+        return int(extra["epoch"])
+
+    def _save(self, state: Dict[str, torch.Tensor], kind: str, run: int,
+              dataset_name: str, epoch: int, metric: float) -> str:
+        return ckpt.save_checkpoint(
+            state_dict_to_flax(self.model, state), self.checkpoint_root,
+            type(self.model).__name__.lower(), dataset_name, "train", kind,
+            self.savename, run, epoch, metric)
+
+    # ------------------------------------------------------------------
+    def fit(self, run: int = 0, dataset_name: str = "dataset",
+            log_every: int = 0, on_epoch_end: Optional[Callable] = None,
+            start_epoch: int = 0) -> Dict[str, torch.Tensor]:
+        """Train epochs ``start_epoch + 1`` to ``hyperparams["epoch"]``;
+        returns the state_dict of the epoch with the best metric, compared
+        as ``abs(metric) >= best`` as the JAX loop does (later epochs win
+        ties): the val accuracy, or -loss without a val pipeline. With
+        ``save_checkpoints``, each new best is written to ``best_epoch``
+        and the last epoch to ``final_epoch`` (paths in
+        ``best_checkpoint`` / ``final_checkpoint``). ``start_epoch`` > 0
+        continues a run restored with :meth:`restore_resumable`."""
         best_metric = 0.0
         best_state = _host_state(self.model)
         bs = self.batch_size
-        for epoch in range(1, self.epochs + 1):
+        for epoch in range(start_epoch + 1, self.epochs + 1):
             t0 = time.time()
             order = self.pipeline.epoch_order(self.np_rng)
             centers_all, valid_all = _pad_to_multiple(order, bs)
@@ -204,6 +250,14 @@ class Trainer:
             if abs(metric) >= best_metric:
                 best_metric = abs(metric)
                 best_state = _host_state(self.model)
+                if self.save_checkpoints:
+                    self.best_checkpoint = self._save(
+                        best_state, "best_epoch", run, dataset_name, epoch,
+                        best_metric)
+            if epoch == self.epochs and self.save_checkpoints:
+                self.final_checkpoint = self._save(
+                    _host_state(self.model), "final_epoch", run,
+                    dataset_name, epoch, abs(metric))
             if on_epoch_end is not None:
                 on_epoch_end(epoch, avg_loss, metric)
         return best_state
