@@ -152,6 +152,18 @@ ZOO_LAUNCHES = {"MHST": (430, 688), "SpectralFormer": (440, 0),
 # windows per band: 4 origin rows x (1905 - patch + 1)
 ZOO_BANDS = {"MHST": 4 * 1898, "SpectralFormer": 4 * 1905,
              "S2EFT": 4 * 1899}
+# phase zoo_train: run_train of each zoo model at 2 epochs, then steady
+# steps on one batch of TRAIN_BATCH; K8 launches per train step: one per ViT
+# layer (MHST, SpectralFormer, S2EFT: 5; GLT_Net: 5 encoder + 5 decoder);
+# the backward launches none, and MHST's pooled blocks (attn_drop 0.1)
+# take the unfused formula, so no K9. The crop step: 32 centers; MHST at
+# attn_drop 0 launches K9 once per pooled block
+ZOO_TRAIN_EPOCHS, ZOO_STEADY_STEPS, ZOO_CROP_CENTERS = 2, 10, 32
+ZOO_TRAIN_K8 = {"MHST": 5, "SpectralFormer": 5, "S2EFT": 5, "GLT_Net": 10}
+MHST_POOLED_BLOCKS = 8
+# the tokens of each zoo ViT in training (K8's train shapes)
+ZOO_TRAIN_TOKENS = ((65, "MHST, GLT_Net"), (145, "S2EFT"),
+                    (146, "SpectralFormer"))
 # phase 9: the sweep tools' variant kernels (rows 10-13 of the table);
 # their cases at fewer repetitions, plus a ragged batch and one token
 VARIANTS = ("selective_scan_tiled", "selective_scan_batch_major",
@@ -941,7 +953,7 @@ def phase_train(tmp, state):
     from vit_cnn_tpu_torch.cli import build_parser, run_train
     from vit_cnn_tpu_torch.data import get_dataset
     from vit_cnn_tpu_torch.ops import _build
-    from vit_cnn_tpu_torch.tools import flagship_step
+    from vit_cnn_tpu_torch.tools import train_step
 
     args = build_parser().parse_args([
         "--dataset", "Synthetic", "--folder", tmp, "--model",
@@ -964,7 +976,7 @@ def phase_train(tmp, state):
     _check_counts(counts, steps_per_epoch * result["epochs"], "train")
 
     # steady steps on one fixed batch (as bench.py's measure_train_ours)
-    trainer, step_args = flagship_step(
+    trainer, step_args = train_step(
         get_dataset("Synthetic", tmp)[:3], state, "cuda", TRAIN_BATCH,
         bf16=True, flip=True, seed=SEED)
     first = trainer._step(*step_args)                      # not timed
@@ -1009,15 +1021,15 @@ def phase_train_crop(tmp, state):
 
     from vit_cnn_tpu_torch.data import get_dataset
     from vit_cnn_tpu_torch.models.registry import get_model
-    from vit_cnn_tpu_torch.tools import flagship_step
+    from vit_cnn_tpu_torch.tools import train_step
 
     scene = tuple(x[:40, :200] for x in get_dataset("Synthetic", tmp)[:3])
     img1, img2, _ = scene
     n_classes = int(SCENE["VCT_SYN_CLASSES"])
 
     def one_step(device, bf16):
-        trainer, step_args = flagship_step(scene, state, device, 32,
-                                           bf16=bf16, seed=SEED)
+        trainer, step_args = train_step(scene, state, device, 32,
+                                        bf16=bf16, seed=SEED)
         loss = trainer._step(*step_args)
         model = trainer.model
         grads = {k: p.grad.detach().cpu() for k, p in
@@ -1482,6 +1494,324 @@ def phase_zoo_crop(tmp):
                      .format(failed))
 
 
+def _zoo_train_kernels(rows):
+    """K8 and K9 under autograd at the zoo's train shapes (batch 1024): K8
+    on the strided q, k, v views of a fused qkv at 65, 145 and 146 tokens,
+    4 heads of 16; K9 at MHST's (65, 16 x 4). Forward and gradients
+    against the plain version's autograd, float32 and bf16; timed forward
+    and forward + (plain) backward beside the plain version's."""
+    import torch
+
+    from vit_cnn_tpu_torch.ops import attention
+    from vit_cnn_tpu_torch.tools import bound as _bound
+    from vit_cnn_tpu_torch.tools import median_ms as _median_ms
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    B = TRAIN_BATCH
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+
+    def fwd_bwd(fn, leaves, cot):
+        for x in leaves:
+            x.grad = None
+        out = fn(*leaves)
+        out.backward(cot)
+        return out.detach(), [x.grad for x in leaves]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for n, who in ZOO_TRAIN_TOKENS:
+            qkv = randn(B, n, 3 * 64).to(dtype).requires_grad_()
+            cot = randn(B, n, 4, 16).to(dtype)
+            heads = lambda t: t.view(B, n, 4, 16)
+
+            def kernel(x):
+                return attention.fused_attention_heads(
+                    *map(heads, x.chunk(3, -1)), 0.25)
+
+            def plain(x):
+                return attention.attention_reference_heads(
+                    *map(heads, x.chunk(3, -1)), 0.25)
+
+            got, (g_got,) = fwd_bwd(kernel, [qkv], cot)
+            want, (g_want,) = fwd_bwd(plain, [qkv], cot)
+            err = _compare("K8 train B={} n={} 4x16 ({})".format(B, n, who),
+                           got, want, dn)
+            _compare("K8 train gradient B={} n={}".format(B, n), g_got,
+                     g_want, dn)
+            with torch.no_grad():
+                t = _median_ms(lambda: kernel(qkv))
+                p = _median_ms(lambda: plain(qkv), reps=3)
+            tb = _median_ms(lambda: fwd_bwd(kernel, [qkv], cot))
+            pb = _median_ms(lambda: fwd_bwd(plain, [qkv], cot), reps=3)
+            q, k, v = map(heads, qkv.detach().chunk(3, -1))
+            bnd = _bound([q, k, v, got], dn, exps=B * 4 * n * n,
+                         flops=4 * B * 4 * n * n * 16)
+            print("    zoo train n={} {} ({}): kernel {:.3f} ms, plain "
+                  "{:.3f}; forward + plain backward {:.3f}, plain both "
+                  "{:.3f}; bound {:.3f} ({})".format(n, dn, who, t, p, tb,
+                                                     pb, *bnd), flush=True)
+            _timed(rows, "fused_attention_heads",
+                   "zoo train (B={}, n={}, 4x16)".format(B, n), dn, ms=t,
+                   plain_ms=p, fwd_bwd_ms=tb, plain_fwd_bwd_ms=pb,
+                   bound_ms=bnd[0], bound_by=bnd[1])
+            _record(rows, "fused_attention_heads", err, dn)
+            del qkv, cot, got, want, g_got, g_want
+        n, h, hd = 65, 16, 4
+        leaves = [randn(B, n, h * hd).to(dtype).requires_grad_()
+                  for _ in range(3)]
+        leaves += [(1 + 0.2 * randn(hd)).to(dtype).requires_grad_()
+                   if i % 2 == 0 else (0.1 * randn(hd)).to(dtype)
+                   .requires_grad_() for i in range(6)]
+        cot = randn(B, n, h * hd).to(dtype)
+
+        def kernel9(*a):
+            return attention.pooled_heads_attention(*a, h, 0.5)
+
+        def plain9(q, k, v, a, b, c, d, e, f):
+            return attention.pooled_attention_reference(
+                q, k, v, (a, b), (c, d), (e, f), h, 0.5)
+
+        got, g_got = fwd_bwd(kernel9, leaves, cot)
+        want, g_want = fwd_bwd(plain9, leaves, cot)
+        if dtype == torch.float32:
+            # K9 takes its LN statistics in float64 there (phase 2)
+            with torch.no_grad():
+                want = plain9(*[x.double() for x in leaves]).float()
+        err = _compare("K9 train B={} n={} 16x4 (MHST)".format(B, n), got,
+                       want, dn)
+        # the LN scales and biases sum over every token and head
+        _compare("K9 train gradients B={} n={}".format(B, n), g_got, g_want,
+                 dn, summed=range(3, 9))
+        with torch.no_grad():
+            t = _median_ms(lambda: kernel9(*leaves))
+            p = _median_ms(lambda: plain9(*leaves), reps=3)
+        tb = _median_ms(lambda: fwd_bwd(kernel9, leaves, cot))
+        pb = _median_ms(lambda: fwd_bwd(plain9, leaves, cot), reps=3)
+        bnd = _bound(leaves + [got], dn, exps=B * h * n * n,
+                     flops=4 * B * h * n * n * hd)
+        print("    zoo train MHST pooled {}: kernel {:.3f} ms, plain {:.3f}; "
+              "forward + plain backward {:.3f}, plain both {:.3f}; bound "
+              "{:.3f} ({})".format(dn, t, p, tb, pb, *bnd), flush=True)
+        _timed(rows, "pooled_heads_attention",
+               "zoo train (B={}, n={}, 16x4)".format(B, n), dn, ms=t,
+               plain_ms=p, fwd_bwd_ms=tb, plain_fwd_bwd_ms=pb,
+               bound_ms=bnd[0], bound_by=bnd[1])
+        _record(rows, "pooled_heads_attention", err, dn)
+        del leaves, cot, got, want, g_got, g_want
+    torch.cuda.synchronize()
+
+
+def _zoo_train_crop(tmp, name, state, attn_drop_0=False):
+    """One float32 train step of ``name`` on the card and on the CPU
+    (plain versions) from ``state`` and the same 32 centers, flip off, the
+    dropout and Gumbel noise drawn once on the CPU and replayed on the
+    card; the card's bf16 step on the same noise. ``attn_drop_0`` sets
+    MHST's attention dropout to 0, so that its pooled blocks run K9 under
+    autograd. Returns the card f32 step's kernel launches."""
+    import torch
+
+    from vit_cnn_tpu_torch.data import get_dataset
+    from vit_cnn_tpu_torch.nn import noise
+    from vit_cnn_tpu_torch.ops import _build
+    from vit_cnn_tpu_torch.tools import train_step
+
+    scene = tuple(x[:40, :200] for x in get_dataset("Synthetic", tmp)[:3])
+    label = name + (" attn_drop 0" if attn_drop_0 else "")
+
+    def one_step(device, bf16, source):
+        trainer, step_args = train_step(scene, state, device,
+                                        ZOO_CROP_CENTERS, model=name,
+                                        bf16=bf16, seed=SEED)
+        if attn_drop_0:
+            for m in trainer.model.modules():
+                if isinstance(getattr(m, "attn_drop", None), noise.Dropout):
+                    m.attn_drop.rate = 0.0
+        trainer.noise = source
+        loss = trainer._step(*step_args)
+        model = trainer.model
+        grads = {k: p.grad.detach().cpu() for k, p in
+                 model.named_parameters()}
+        stats = {k: v.detach().cpu() for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        return float(loss), grads, stats
+
+    rec = noise.Recorder(torch.Generator().manual_seed(SEED))
+    loss_cpu, g_cpu, s_cpu = one_step("cpu", False, rec)
+    _build.launches.clear()
+    loss_gpu, g_gpu, s_gpu = one_step("cuda", False, noise.Replay(rec.draws))
+    counts = dict(_build.launches)
+    loss_b16 = one_step("cuda", True, noise.Replay(rec.draws))[0]
+    floor = GRAD_ATOL * max(float(g.norm()) for g in g_cpu.values())
+    worst_g = max((float((g_gpu[k] - g).norm()) / (GRAD_TOL * float(g.norm())
+                                                  + floor), k)
+                  for k, g in g_cpu.items())
+    worst_s = max([(float((s_gpu[k] - v).abs().max())
+                    / (STAT_TOL * float(v.abs().max())), k)
+                   for k, v in s_cpu.items()] or [(0.0, "none")])
+    dl = abs(loss_gpu - loss_cpu)
+    db = abs(loss_b16 - loss_gpu) / abs(loss_gpu)
+    print("[zoo_train] {} crop step ({} draws of noise): loss card f32 "
+          "{:.6f} cpu f32 {:.6f} |diff| {:.2e}; {} gradients: worst "
+          "||diff|| {:.3f} of its limit ({}); {} BN statistics: worst {:.3f} "
+          "of its limit ({}); card bf16 loss {:.6f}, {:.2%} from f32 (limit "
+          "{:.0%}); card launches {}".format(
+              label, len(rec.draws), loss_gpu, loss_cpu, dl, len(g_cpu),
+              worst_g[0], worst_g[1], len(s_cpu), worst_s[0], worst_s[1],
+              loss_b16, db, BF16_LOSS_TOL, json.dumps(counts)), flush=True)
+    if dl > 1e-3 * abs(loss_cpu) or worst_g[0] > 1.0 or worst_s[0] > 1.0 \
+            or db > BF16_LOSS_TOL:
+        raise Failed("{}: the card's train step disagrees with the CPU's"
+                     .format(label))
+    return counts
+
+
+def _zoo_handoff(tmp, work, result, test_gt, card):
+    """MHST's best file served through --serve --restore: the served OA,
+    AA and Kappa equal the run's exactly."""
+    import numpy as np
+
+    from vit_cnn_tpu_torch import cli
+
+    best = os.path.join(work, result["best_checkpoint"])
+    gt_path = os.path.join(work, "MHST_test_gt.npy")
+    np.save(gt_path, test_gt)
+    args = cli.build_parser().parse_args([
+        "--dataset", "Synthetic", "--folder", tmp, "--model", "MHST",
+        "--bf16", "--serve", "--restore", best])
+    in_s = io.StringIO(json.dumps({"gt": gt_path}) + "\n"
+                       + json.dumps({"cmd": "quit"}) + "\n")
+    out_s = io.StringIO()
+    served = cli.run_serve(args, in_stream=in_s, out_stream=out_s)
+    resps = [json.loads(l) for l in out_s.getvalue().splitlines() if l]
+    if served != 1 or not resps or not resps[0].get("ok"):
+        raise Failed("MHST's best file was not served: {}".format(resps))
+    r = resps[0]
+    same = all(r[k] == result[k] for k in ("OA", "AA", "Kappa"))
+    print("[zoo_train] MHST best file served ({:.3f} s; {}): OA {} AA {} "
+          "Kappa {} against the run's {} {} {}: {}".format(
+              r["seconds"], card, r["OA"], r["AA"], r["Kappa"], result["OA"],
+              result["AA"], result["Kappa"],
+              "equal" if same else "DIFFERENT"), flush=True)
+    if not same:
+        raise Failed("MHST's restored OA / AA / Kappa differ from the run's")
+
+
+def phase_zoo_train(tmp, rows, card):
+    """Each zoo model trained through run_train at registry widths (bf16,
+    batch 1024, flip on, 200 centers a class, 2 epochs), then steady steps
+    on one batch (ms, patches/s, peak memory; K8 launched exactly once per
+    ViT layer a step), the card-against-CPU crop step, and MHST's best
+    file served back. Returns (run_train's launches per model, the steady
+    figures per model)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vit_cnn_tpu_torch import cli
+    from vit_cnn_tpu_torch.data import get_dataset
+    from vit_cnn_tpu_torch.ops import _build
+    from vit_cnn_tpu_torch.tools import train_step
+
+    _zoo_train_kernels(rows)
+    work = os.path.join(tmp, "zoo_train")
+    os.makedirs(work)
+    scene = get_dataset("Synthetic", tmp)[:3]
+    n_bands = (scene[0].shape[2], scene[1].shape[2])
+    n_classes = int(SCENE["VCT_SYN_CLASSES"])
+    counts, steady = {}, {}
+    for name in ZOO:
+        state = _seeded_state(name, n_bands, n_classes)
+        splits = []
+        real_load = cli._load_gt_pair
+
+        def load_gt_pair(*args, **kwargs):
+            splits.append(real_load(*args, **kwargs))
+            return splits[-1]
+
+        cwd = os.getcwd()
+        os.chdir(work)                  # ./checkpoints and ./results here
+        stdout = io.StringIO()
+        try:
+            cli._load_gt_pair = load_gt_pair
+            args = cli.build_parser().parse_args([
+                "--dataset", "Synthetic", "--folder", tmp, "--model", name,
+                "--bf16", "--batch_size", str(TRAIN_BATCH),
+                "--flip_augmentation", "--runs", "1", "--epoch",
+                str(ZOO_TRAIN_EPOCHS), "--training_sample", "200",
+                "--out_dir", os.path.join(work, "results"), "--log_every",
+                "1"])
+            _build.launches.clear()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(stdout):
+                result = cli.run_train(args, state_dict=state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts[name] = dict(_build.launches)
+        finally:
+            cli._load_gt_pair = real_load
+            os.chdir(cwd)
+        print("[zoo_train] {} run_train {:.1f} s ({}): {} centers, epoch "
+              "losses {}, val {}, OA {:.2f} AA {:.4f} Kappa {:.4f}; "
+              "launches {}".format(
+                  name, wall, card, result["train_samples"],
+                  result["losses"], result["val_accuracies"], result["OA"],
+                  result["AA"], result["Kappa"], json.dumps(counts[name])),
+              flush=True)
+        files = [os.path.join(work, result[k] or "")
+                 for k in ("best_checkpoint", "final_checkpoint")]
+        if not all(np.isfinite(result["losses"])) or \
+                counts[name].get("fused_attention_heads", 0) <= 0 or \
+                not all(os.path.isfile(f) for f in files):
+            raise Failed("{}: run_train gave a non-finite loss, no K8 launch "
+                         "or no checkpoint file".format(name))
+
+        trainer, step_args = train_step(scene, state, "cuda", TRAIN_BATCH,
+                                        model=name, bf16=True, flip=True,
+                                        seed=SEED)
+        first = trainer._step(*step_args)                  # not timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        losses = [trainer._step(*step_args) for _ in range(ZOO_STEADY_STEPS)]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = dict(_build.launches)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(first)] + [float(x) for x in losses]
+        want = {"fused_attention_heads": ZOO_TRAIN_K8[name] * ZOO_STEADY_STEPS}
+        steady[name] = {"ms_per_step": 1e3 * secs / ZOO_STEADY_STEPS,
+                        "patches_per_s": ZOO_STEADY_STEPS * TRAIN_BATCH / secs,
+                        "peak_gb": peak / 1e9,
+                        "k8_per_step": got.get("fused_attention_heads", 0)
+                        / ZOO_STEADY_STEPS}
+        print("[zoo_train] {} steady: {} steps of {}: {:.2f} ms/step, {:.0f} "
+              "patches/s, peak device memory {:.2f} GB ({}); losses {}; "
+              "launches {} (expected {})".format(
+                  name, ZOO_STEADY_STEPS, TRAIN_BATCH,
+                  steady[name]["ms_per_step"],
+                  steady[name]["patches_per_s"], peak / 1e9, card,
+                  " ".join("{:.4f}".format(x) for x in losses),
+                  json.dumps(got), json.dumps(want)), flush=True)
+        off = [k for k, p in trainer.model.named_parameters()
+               if p.dtype != torch.float32]
+        if got != want or not all(np.isfinite(losses)) or off:
+            raise Failed("{}: steady steps launched {} (expected {}), or a "
+                         "non-finite loss, or parameters left float32: {}"
+                         .format(name, got, want, off))
+        del trainer, step_args
+        _zoo_train_crop(tmp, name, state)
+        if name == "MHST":
+            k9 = _zoo_train_crop(tmp, name, state, attn_drop_0=True).get(
+                "pooled_heads_attention", 0)
+            if k9 != MHST_POOLED_BLOCKS:
+                raise Failed("MHST at attn_drop 0 launched K9 {} times in a "
+                             "step, not {}".format(k9, MHST_POOLED_BLOCKS))
+            _zoo_handoff(tmp, work, result, splits[-1][1], card)
+    return counts, steady
+
+
 def main():
     import torch
 
@@ -1516,6 +1846,8 @@ def main():
                 runloop_counts = phase_runloop(tmp, state, card)
                 zoo_counts = phase_zoo(tmp)
                 phase_zoo_crop(tmp)
+                zoo_train_counts, zoo_steady = phase_zoo_train(tmp, rows,
+                                                               card)
             finally:
                 os.chdir(here)
     except Failed as e:
@@ -1569,9 +1901,11 @@ def main():
     # set to 0 just before it); launches_by_path has all five paths
     zoo = {k: sum(c.get(k, 0) for c in zoo_counts.values())
            for k in sources}
+    zoo_train = {k: sum(c.get(k, 0) for c in zoo_train_counts.values())
+                 for k in sources}
     paths = {"serve": counts, "train": train_counts,
              "runloop": runloop_counts, "serve_zoo": zoo,
-             "sweep": sweep_counts}
+             "train_zoo": zoo_train, "sweep": sweep_counts}
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
                   launches=paths["train" if name in ADJOINTS else
                                  "serve_zoo" if name in HEADS else
@@ -1583,6 +1917,7 @@ def main():
                   **rows[name])
              for name, (src, rep) in sources.items()]
     print("[train] {}".format(json.dumps(steady)), flush=True)
+    print("[zoo_train] {}".format(json.dumps(zoo_steady)), flush=True)
     print(card, flush=True)                  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ attention kernels (K8, K9) are held at one token, 17 tokens (a last key
 tile that is mostly padding), the zoo's token counts, the 512-token limit
 (in bf16 with the heads split over blocks), head widths 4 / 5 / 12 / 16 /
 24 / 32, ragged batches and the strided q / k / v views of a fused
-projection; K8's bf16 instance also against its float32 instance. K1 and
+projection; K8's bf16 instance also against its float32 instance; both
+under autograd at the zoo's train shapes (batch 1024: K8 at 65, 145 and
+146 tokens on a fused qkv's views, K9 at MHST's 65 tokens). K1 and
 K2 at the edges of their tiles: b = 1, 31, 33, 7,588; d = 1, 5, 72, 128;
 n = 1, 7, 16; L = 1, 2, 3, 81; k = 1, 4, 8; forward and reverse; and
 K1's tile as the C entry point plans it equal to ``scan_tile``. The tuning
@@ -685,6 +687,60 @@ def test_heads_functions_carry_gradients(gen):
             q, k, v, (a, b), (c, d), (e, f), 16, 0.5), qkv + lns, g)
     for x, y in zip(got, want):
         _close_summed(x, y, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [65, 145, 146])
+def test_heads_attention_at_the_zoo_train_shapes(gen, dtype, n):
+    """K8 under autograd at the zoo's train shapes (batch 1024, 4 heads of
+    16; MHST and GLT_Net 65 tokens, S2EFT 145, SpectralFormer 146) on the
+    strided q, k, v views of a fused qkv: the forward and the fused qkv's
+    gradient against autograd through the plain version, one launch a
+    forward and none in the backward."""
+    B, h, hd = 1024, 4, 16
+    qkv = _randn(gen, B, n, 3 * h * hd).to(dtype)
+    g = _randn(gen, B, n, h, hd).to(dtype)
+
+    def through(fn):
+        x = qkv.detach().requires_grad_()
+        out = fn(*(t.view(B, n, h, hd) for t in x.chunk(3, dim=-1)), 0.25)
+        out.backward(g)
+        return out.detach(), x.grad
+
+    before = _build.launches["fused_attention_heads"]
+    got = through(fused_attention_heads)
+    assert _build.launches["fused_attention_heads"] == before + 1
+    want = through(attention_reference_heads)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pooled_attention_at_the_mhst_train_shape(gen, dtype):
+    """K9 under autograd at MHST's train shape (batch 1024, 65 tokens, 16
+    heads of 4): the forward against the plain version (float64 for
+    float32, as above), the gradients of q, k, v and of the LN scales and
+    biases (sums over every token and head) against autograd through the
+    plain version; one launch a forward, none in the backward."""
+    B, n, h, hd = 1024, 65, 16, 4
+    qkv = tuple(_randn(gen, B, n, h * hd).to(dtype) for _ in range(3))
+    lns = tuple((1 + 0.2 * _randn(gen, hd) if i % 2 == 0
+                 else 0.1 * _randn(gen, hd)).to(dtype) for i in range(6))
+    g = _randn(gen, B, n, h * hd).to(dtype)
+    plain = lambda q, k, v, a, b, c, d, e, f: pooled_attention_reference(
+        q, k, v, (a, b), (c, d), (e, f), h, 0.5)
+    before = _build.launches["pooled_heads_attention"]
+    got = _grads_through(lambda *a: pooled_heads_attention(*a, h, 0.5),
+                         qkv + lns, g)
+    assert _build.launches["pooled_heads_attention"] == before + 1
+    want = _grads_through(plain, qkv + lns, g)
+    for x, y in zip(got[:3], want[:3]):
+        _close(x, y, dtype)
+    for x, y in zip(got[3:], want[3:]):
+        _close_summed(x, y, dtype)
+    wide = (lambda x: x.double()) if dtype == torch.float32 else (
+        lambda x: x)
+    out = pooled_heads_attention(*qkv, *lns, h, 0.5)
+    _close(out, plain(*map(wide, qkv + lns)).to(dtype), dtype)
 
 
 def test_heads_wrappers_refuse_what_the_kernels_do_not_take(gen):

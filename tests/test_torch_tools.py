@@ -43,8 +43,8 @@ def test_train_conditioning_cpu(tiny_scene, capsys):
 def test_flagship_step_cpu(tiny_scene):
     scene = tools.load_scene(crop=(20, 30))
     assert scene[0].shape == (20, 30, 20) and scene[2].shape == (20, 30)
-    trainer, args = tools.flagship_step(scene, tools.flagship_state(scene),
-                                        "cpu", 4, flip=True)
+    trainer, args = tools.train_step(scene, tools.model_state(scene),
+                                     "cpu", 4, flip=True)
     before = {k: p.detach().clone() for k, p in
               trainer.model.named_parameters()}
     loss = trainer._step(*args)

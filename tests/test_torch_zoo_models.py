@@ -27,7 +27,7 @@ import torch
 
 from vit_cnn_tpu.infer import fullscene as jax_fullscene
 from vit_cnn_tpu.models import registry as jax_registry
-from vit_cnn_tpu_torch.cli import build_parser, run_serve, run_train
+from vit_cnn_tpu_torch.cli import build_parser, run_serve
 from vit_cnn_tpu_torch.convert import (flax_to_state_dict,
                                        seeded_state_dict, seeded_variables,
                                        state_dict_to_flax)
@@ -132,16 +132,6 @@ def test_s2eft_gate_both_keeps_and_drops_tokens():
     assert open_.any() and not open_.all()
 
 
-def test_zoo_refuses_train_mode(zoo_model):
-    name, _, _, tm, hsi, lidar, _ = zoo_model
-    tm.train()
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm(torch.from_numpy(hsi), torch.from_numpy(lidar))
-    finally:
-        tm.eval()
-
-
 @pytest.mark.parametrize("name", sorted(registry.MODELS))
 def test_convert_round_trips_every_model_strictly(name):
     """flax -> port -> flax -> port gives every entry back exactly, and an
@@ -224,9 +214,3 @@ def test_cli_serves_a_zoo_model_on_the_cpu(tmp_path, monkeypatch, model):
     served = run_serve(args, io.StringIO('{}\n{"cmd": "quit"}\n'), out)
     (resp,) = [json.loads(line) for line in out.getvalue().splitlines()]
     assert served == 1 and resp["ok"] and resp["shape"] == [12, 13, 5]
-
-
-def test_cli_refuses_to_train_a_zoo_model(tmp_path, monkeypatch):
-    args = _args(tmp_path, monkeypatch, "MHST", "--epoch", "1")
-    with pytest.raises(NotImplementedError, match="transformer zoo training"):
-        run_train(args)

@@ -7,6 +7,8 @@ as::
 
   python -m vit_cnn_tpu_torch --dataset Synthetic --bf16 --runs 2 \\
       --epoch 10 --batch_size 1024 --flip_augmentation     # train
+  python -m vit_cnn_tpu_torch --dataset Synthetic --model MHST --bf16 \\
+      --runs 1 --epoch 2 --batch_size 1024    # train a zoo model
   python -m vit_cnn_tpu_torch --dataset Synthetic --bf16 --serve \\
       --restore checkpoints/.../best_epoch/<file>.msgpack   # serve
 
@@ -41,7 +43,7 @@ from ..infer.fullscene import full_scene_probabilities
 from ..infer.server import SceneServer
 from ..metrics import metrics
 from ..metrics.report import show_results
-from ..models.registry import SERVE_ONLY, get_model, model_names
+from ..models.registry import get_model, model_names
 from ..nn.layers import init_parameters
 from ..pipeline.patches import AugmentConfig, PatchPipeline
 from ..train.checkpoint import restore_state_dict
@@ -235,11 +237,6 @@ class _Setup:
     own artifacts) and the command line's hyperparameters."""
 
     def __init__(self, args):
-        if args.model in SERVE_ONLY:
-            raise NotImplementedError(
-                "{} is ported for --serve only: training the transformer "
-                "zoo is ROADMAP Queue 1, 'transformer zoo training'".format(
-                    args.model))
         self.device = _device(args.device)
         _check_stride(args)
         (self.img1, self.img2, self.gt, self.label_values,

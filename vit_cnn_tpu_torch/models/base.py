@@ -15,12 +15,3 @@ def squeeze_pixel(x: torch.Tensor) -> torch.Tensor:
     """(B, 1, 1, C) -> (B, C); passthrough for (B, C)."""
     return x[:, 0, 0, :] if x.dim() == 4 else x
 
-
-def refuse_training(module: torch.nn.Module, name: str) -> None:
-    """The zoo is ported for serving: its dropout, Gumbel noise and
-    attention dropout come with its training slice."""
-    if module.training:
-        raise NotImplementedError(
-            "{} runs in eval mode only: training the transformer zoo "
-            "(dropout, Gumbel head-selection noise) is ROADMAP Queue 1, "
-            "'transformer zoo training'".format(name))

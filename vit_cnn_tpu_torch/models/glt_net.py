@@ -1,4 +1,4 @@
-"""GLT-Net in PyTorch, eval mode (port of :mod:`vit_cnn_tpu.models.
+"""GLT-Net in PyTorch (port of :mod:`vit_cnn_tpu.models.
 glt_net`, ref: model/compare_method/GLT_Net/GLT_Net.py:310-422, with the
 JAX package's single-patch adaptation).
 
@@ -18,7 +18,9 @@ JAX package's single-patch adaptation).
 * Classifier: the raw Dense logits of the CLS token (LayerNorm eps 1e-6)
   times coefficient1 plus the softmax CNN head times coefficient2.
 
-Returns ``(logits, con_loss)``; serving takes the first.
+Dropout (``emb_dropout`` after the positions, ``dropout`` in both
+backbones) acts in train mode. Returns ``(logits, con_loss)``; serving
+takes the first, training adds the second to the loss (``glt``).
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..nn.layers import BatchNorm, Conv, Dense, LayerNorm, max_pool_2x2
+from ..nn.noise import Dropout
 from ..nn.transformer import ViTBackbone
-from .base import refuse_training
 
 
 def resize(x, size: int, mode: str):
@@ -78,7 +80,8 @@ class GLTNet(nn.Module):
                  n_classes: int, encoder_embed_dim: int = 64,
                  decoder_embed_dim: int = 32,
                  en_depth: int = 5, en_heads: int = 4, de_depth: int = 5,
-                 de_heads: int = 4, dim_head: int = 16, mlp_dim: int = 8):
+                 de_heads: int = 4, dim_head: int = 16, mlp_dim: int = 8,
+                 dropout: float = 0.1, emb_dropout: float = 0.1):
         super().__init__()
         p, dim, ddim = patch_size, encoder_embed_dim, decoder_embed_dim
         self.stem_hsi = _ConvBlock(n_bands1, 32)
@@ -94,12 +97,13 @@ class GLTNet(nn.Module):
         self.sa_gdr = _SAGDR()
         self.encoder_pos_embed = nn.Parameter(torch.empty(1, p * p + 1, dim))
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim))
+        self.emb_drop = Dropout(emb_dropout)
         self.en_transformer = ViTBackbone(dim, en_depth, en_heads, dim_head,
-                                          mlp_dim)
+                                          mlp_dim, dropout)
         self.decoder_embedding = Dense(dim, ddim)
         self.decoder_pos_embed = nn.Parameter(torch.empty(1, p * p + 1, ddim))
         self.de_transformer = ViTBackbone(ddim, de_depth, de_heads, dim_head,
-                                          mlp_dim)
+                                          mlp_dim, dropout)
         self.decoder_pred1 = Dense(ddim, 64)
         for i, ch in enumerate((n_bands1, n_bands2) * 3):
             setattr(self, "dconv{}".format(i + 1), Conv(64, ch, 3, padding=1))
@@ -120,7 +124,6 @@ class GLTNet(nn.Module):
             nn.init.normal_(p, 0.0, 1.0, generator=g)
 
     def forward(self, hsi, lidar):
-        refuse_training(self, "GLT_Net")
         b, p, _, _ = hsi.shape
         dim = self.cls_token.shape[-1]
         scales1 = [hsi] + [resize(hsi, s * p, "bilinear") for s in (2, 3)]
@@ -141,7 +144,7 @@ class GLTNet(nn.Module):
         pos = self.encoder_pos_embed
         x = x_cnn.transpose(1, 2) + pos[:, 1:]
         x = torch.cat([self.cls_token.expand(b, 1, dim), x], dim=1)
-        x_vit = self.en_transformer(x + pos[:, :1])
+        x_vit = self.en_transformer(self.emb_drop(x + pos[:, :1]))
 
         d = self.decoder_embedding(x_vit) + self.decoder_pos_embed
         d = self.decoder_pred1(self.de_transformer(d))[:, 1:]

@@ -1,8 +1,8 @@
 """Model registry: name -> (constructor, default hyperparameters).
 
 Port of :mod:`vit_cnn_tpu.models.registry` for the models ported so far:
-the flagship, and the transformer zoo (SpectralFormer, S2EFT, MHST,
-GLT_Net) for serving.
+the flagship and the transformer zoo (SpectralFormer, S2EFT, MHST,
+GLT_Net), each with its registry loss and optimizer.
 ``get_model`` fills hyperparameters with the same setdefault semantics
 and returns (module, spec, filled hyperparameters); the module's
 parameters are empty until :func:`vit_cnn_tpu_torch.nn.layers.
@@ -49,7 +49,8 @@ def _build_spectralformer(hp):
 
     return SpectralFormer(num_patches=hp["n_bands"][0] + hp["n_bands"][1],
                           n_classes=hp["n_classes"], dim=64, depth=5,
-                          heads=4, mlp_dim=8, mode="ViT")
+                          heads=4, mlp_dim=8, dropout=0.1, emb_dropout=0.1,
+                          mode="ViT")
 
 
 def _build_s2eft(hp):
@@ -57,7 +58,8 @@ def _build_s2eft(hp):
 
     return S2EFT(num_patches=hp["n_bands"][0], patch_size=hp["patch_size"],
                  n_classes=hp["n_classes"], dim=64, depth=5, heads=4,
-                 mlp_dim=8, mode="CAF", near_band=3)
+                 mlp_dim=8, dropout=0.1, emb_dropout=0.1, mode="CAF",
+                 near_band=3)
 
 
 def _build_mhst(hp):
@@ -66,8 +68,9 @@ def _build_mhst(hp):
     return MHST(n_bands1=hp["n_bands"][0], n_bands2=hp["n_bands"][1],
                 patch_size=hp["patch_size"], n_classes=hp["n_classes"],
                 encoder_embed_dim=64, en_depth=5, en_heads=4, mlp_dim=8,
-                coefficient_hsi=0.6, coefficient_vit=0.7, hsp_vit_depth=8,
-                hsp_vit_num_heads=16)
+                dropout=0.1, emb_dropout=0.1, coefficient_hsi=0.6,
+                coefficient_vit=0.7, hsp_vit_depth=8, hsp_vit_num_heads=16,
+                head_tau=5.0)
 
 
 def _build_glt(hp):
@@ -77,7 +80,7 @@ def _build_glt(hp):
                   patch_size=hp["patch_size"], n_classes=hp["n_classes"],
                   encoder_embed_dim=64,
                   decoder_embed_dim=32, en_depth=5, en_heads=4, de_depth=5,
-                  de_heads=4, mlp_dim=8)
+                  de_heads=4, mlp_dim=8, dropout=0.1, emb_dropout=0.1)
 
 
 # defaults cited from ref: model_utils.py (line ranges per entry)
@@ -96,8 +99,6 @@ MODELS: Dict[str, ModelSpec] = {
                                      optimizer="adamw",
                                      epochs=200),                   # :297-313
 }
-#: models the port can serve but not yet train
-SERVE_ONLY = ("SpectralFormer", "S2EFT", "MHST", "GLT_Net")
 
 
 def model_names():

@@ -8,8 +8,9 @@ A channel-attention gate (mean / max over a token's features, a 7-tap
 >= 0.4; the hard gate passes no gradient. A CLS token and the first n + 1
 of num_patches + 2 learned positions feed a 'CAF'-wired backbone (145
 tokens at Houston2013 width, kernel K8 in every layer); the head is
-LayerNorm with flax's default eps 1e-6 and a Dense layer. The LiDAR input
-is accepted and ignored.
+LayerNorm with flax's default eps 1e-6 and a Dense layer. Dropout (rate
+``dropout`` in the backbone, ``emb_dropout`` after the positions) acts in
+train mode. The LiDAR input is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -18,14 +19,15 @@ import torch
 import torch.nn as nn
 
 from ..nn.layers import Conv, Dense, LayerNorm
+from ..nn.noise import Dropout
 from ..nn.transformer import ViTBackbone
-from .base import refuse_training
 
 
 class S2EFT(nn.Module):
     def __init__(self, num_patches: int, patch_size: int, n_classes: int,
                  dim: int = 64, depth: int = 5, heads: int = 4,
-                 dim_head: int = 16, mlp_dim: int = 8, mode: str = "CAF",
+                 dim_head: int = 16, mlp_dim: int = 8, dropout: float = 0.1,
+                 emb_dropout: float = 0.1, mode: str = "CAF",
                  near_band: int = 3):
         super().__init__()
         self.near_band = near_band
@@ -33,8 +35,10 @@ class S2EFT(nn.Module):
         self.patch_to_embedding = Dense(patch_size ** 2 * near_band, dim)
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim))
         self.pos_embedding = nn.Parameter(torch.empty(1, num_patches + 2, dim))
+        self.emb_drop = Dropout(emb_dropout)
         self.transformer = ViTBackbone(dim, depth, heads, dim_head, mlp_dim,
-                                       mode, num_tokens=num_patches + 1)
+                                       dropout, mode,
+                                       num_tokens=num_patches + 1)
         self.head_norm = LayerNorm(dim)
         self.head = Dense(dim, n_classes)
 
@@ -43,7 +47,6 @@ class S2EFT(nn.Module):
             nn.init.normal_(p, 0.0, 1.0, generator=g)
 
     def forward(self, hsi, lidar):
-        refuse_training(self, "S2EFT")
         b, p, _, c = hsi.shape
         x = hsi.reshape(b, p * p, c).transpose(1, 2)       # (B, C, P*P)
         x = torch.cat([torch.roll(x, -i, dims=1)
@@ -55,5 +58,6 @@ class S2EFT(nn.Module):
         x = self.patch_to_embedding(x)
         n, d = x.shape[1], x.shape[2]
         x = torch.cat([self.cls_token.expand(b, 1, d), x], dim=1)
-        x = self.transformer(x + self.pos_embedding[:, :n + 1])
+        x = self.emb_drop(x + self.pos_embedding[:, :n + 1])
+        x = self.transformer(x)
         return self.head(self.head_norm(x[:, 0]))

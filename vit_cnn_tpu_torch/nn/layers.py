@@ -45,7 +45,14 @@ class Dense(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        w, b = self.weight, self.bias
+        if x.dtype != w.dtype:
+            # flax promotes the input and the parameters to one dtype (a
+            # float32 input under the bf16 policy computes in float32)
+            f = torch.promote_types(x.dtype, w.dtype)
+            x, w = x.to(f), w.to(f)
+            b = None if b is None else b.to(f)
+        return F.linear(x, w, b)
 
 
 def _per_dim(v, nd: int) -> tuple:
@@ -89,8 +96,15 @@ class Conv(nn.Module):
             return F.linear(x, self.weight.reshape(self.weight.shape[:2]),
                             self.bias)
         conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
-        y = conv(x.movedim(-1, 1), self.weight, self.bias, self.strides,
-                 self.padding, 1, self.groups)
+        x, padding = x.movedim(-1, 1), self.padding
+        if nd == 3 and x.device.type == "cpu" and any(padding):
+            # the CPU's oneDNN 3-D conv corrupts the heap in its weight
+            # gradient at some padded shapes (MHST's strided stem over 7 or
+            # 8 bands); padded explicitly, the same conv does not
+            x = F.pad(x, [p for p in reversed(padding) for _ in (0, 1)])
+            padding = 0
+        y = conv(x, self.weight, self.bias, self.strides, padding, 1,
+                 self.groups)
         return y.movedim(1, -1)
 
 

@@ -1,0 +1,119 @@
+"""The transformer zoo's train-mode noise: dropout masks and the Gumbel
+uniforms of MHST's head selection.
+
+Every draw goes through :func:`uniform`, which takes its numbers from
+the source :func:`drawing` made current: a ``torch.Generator`` on the
+device of the draw (the Trainer's), or a :class:`Recorder` /
+:class:`Replay`, which let two runs (the card and the CPU, the port and
+the JAX package) share one set of draws. A train-mode draw outside
+``drawing`` raises: the zoo never draws from a global generator.
+
+:class:`Dropout` is flax's ``nn.Dropout``: keep ~ Bernoulli(1 - rate)
+(a uniform below 1 - rate), then ``x / (1 - rate)`` where kept and 0
+elsewhere; the identity in eval mode or at rate 0, zeros at rate 1. It
+draws nothing where flax draws nothing.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Callable, List, Sequence, Union
+
+import torch
+import torch.nn as nn
+
+Source = Union[torch.Generator, Callable]
+# the current source, per thread and task
+_source: contextvars.ContextVar = contextvars.ContextVar("noise_source",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def drawing(source: Source):
+    """Make ``source`` the source of :func:`uniform` inside the block."""
+    token = _source.set(source)
+    try:
+        yield source
+    finally:
+        _source.reset(token)
+
+
+def _affine(u: torch.Tensor, low: float, high: float) -> torch.Tensor:
+    """[0, 1) -> [low, high), as ``jax.random.uniform`` maps its floats
+    (floored at ``low``)."""
+    if low == 0.0 and high == 1.0:
+        return u
+    return (u * (high - low) + low).clamp_min(low)
+
+
+def uniform(shape: Sequence[int], device, low: float = 0.0,
+            high: float = 1.0) -> torch.Tensor:
+    """float32 uniforms in [low, high) of ``shape`` on ``device`` from the
+    current source."""
+    source = _source.get()
+    if source is None:
+        raise RuntimeError("a train-mode draw of the zoo (dropout or Gumbel "
+                           "noise) outside noise.drawing(generator)")
+    if isinstance(source, torch.Generator):
+        return _affine(torch.rand(tuple(shape), generator=source,
+                                  device=device), low, high)
+    return source(tuple(shape), device, low, high)
+
+
+class Recorder:
+    """A source that draws from ``generator`` and keeps a CPU copy of
+    every draw, in order (``draws``)."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.draws: List[torch.Tensor] = []
+
+    def __call__(self, shape, device, low, high):
+        u = _affine(torch.rand(shape, generator=self.generator,
+                               device=self.generator.device), low, high)
+        self.draws.append(u.cpu())
+        return u.to(device)
+
+
+class Replay:
+    """A source that hands out ``draws`` in order, each on the device of
+    the draw; a draw of another shape, or one too many, raises."""
+
+    def __init__(self, draws: Sequence[torch.Tensor]):
+        self.draws = list(draws)
+        self.taken = 0
+
+    def __call__(self, shape, device, low, high):
+        if self.taken == len(self.draws):
+            raise RuntimeError("replay: draw {} asked of {} recorded".format(
+                self.taken + 1, len(self.draws)))
+        u = self.draws[self.taken]
+        if tuple(u.shape) != tuple(shape):
+            raise RuntimeError("replay: draw {} has shape {}, asked {}"
+                               .format(self.taken, tuple(u.shape), shape))
+        self.taken += 1
+        return u.to(device)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)(x, deterministic=not training)``."""
+    if not training or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = uniform(x.shape, x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x):
+        return dropout(x, self.rate, self.training)
+
+    def extra_repr(self):
+        return "rate={}".format(self.rate)

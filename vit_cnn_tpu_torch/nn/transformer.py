@@ -4,8 +4,9 @@ residual multi-head attention and GELU feed-forward blocks, in 'ViT'
 wiring or in 'CAF' wiring, where a learned (T, 2T) token-mixing matrix
 merges layer l with layer l - 2 before each block from depth 2 on.
 
-Eval mode only: dropout is identity, and the models that use this
-backbone refuse train mode until the zoo's training slice.
+Dropout (flax's, :mod:`.noise`) follows the attention's output
+projection and both feed-forward layers; it acts in train mode
+(``Module.training``) and is the identity in eval mode.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch.nn as nn
 
 from ..ops.attention import fused_attention_auto, fused_attention_heads_auto
 from .layers import Dense, LayerNorm, _lecun_normal_, gelu
+from .noise import Dropout
 
 
 class ViTAttention(nn.Module):
@@ -25,12 +27,14 @@ class ViTAttention(nn.Module):
     views of the fused projection (no copies); wider heads the folded
     K4."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int):
+    def __init__(self, dim: int, heads: int, dim_head: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         inner = heads * dim_head
         self.to_qkv = Dense(dim, inner * 3, use_bias=False)
         self.to_out = Dense(inner, dim)
+        self.drop = Dropout(dropout)
 
     def forward(self, x):
         b, n, _ = x.shape
@@ -44,17 +48,19 @@ class ViTAttention(nn.Module):
             hf = lambda t: t.reshape(b, n, h, dh).transpose(1, 2).contiguous()
             out = fused_attention_auto(hf(q), hf(k), hf(v), scale)
             out = out.transpose(1, 2)
-        return self.to_out(out.reshape(b, n, h * dh))
+        return self.drop(self.to_out(out.reshape(b, n, h * dh)))
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
         super().__init__()
         self.Dense_0 = Dense(dim, hidden_dim)
         self.Dense_1 = Dense(hidden_dim, dim)
+        self.drop = Dropout(dropout)
 
     def forward(self, x):
-        return self.Dense_1(gelu(self.Dense_0(x)))
+        x = self.drop(gelu(self.Dense_0(x)))
+        return self.drop(self.Dense_1(x))
 
 
 class ViTBackbone(nn.Module):
@@ -63,7 +69,7 @@ class ViTBackbone(nn.Module):
     and skipcat{l}_bias (T,) vectors."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
-                 mlp_dim: int, mode: str = "ViT",
+                 mlp_dim: int, dropout: float = 0.0, mode: str = "ViT",
                  num_tokens: Optional[int] = None):
         super().__init__()
         if mode not in ("ViT", "CAF"):
@@ -75,9 +81,10 @@ class ViTBackbone(nn.Module):
         for l in range(depth):
             setattr(self, "attn_norm{}".format(l), LayerNorm(dim, eps=1e-5))
             setattr(self, "attn{}".format(l), ViTAttention(dim, heads,
-                                                           dim_head))
+                                                           dim_head, dropout))
             setattr(self, "ff_norm{}".format(l), LayerNorm(dim, eps=1e-5))
-            setattr(self, "ff{}".format(l), FeedForward(dim, mlp_dim))
+            setattr(self, "ff{}".format(l), FeedForward(dim, mlp_dim,
+                                                        dropout))
         if mode == "CAF":
             t = num_tokens
             for l in range(depth - 2):

@@ -61,6 +61,10 @@ HEADS_MAX_HD = 32    # K8 / K9: one head's width (a warp's lanes)
 HEADS_MAX_C = 256    # K8 / K9: h * hd
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may take
 HEADS_WARPS = 8      # warps per block of K8 and K9 (csrc kThreads / 32)
+# profiler ranges around the plain backward of K8 and K9
+# (tools/profile_train.py reads their device time)
+HEADS_BACKWARD = "K8 plain backward"
+POOLED_BACKWARD = "K9 plain backward"
 
 
 def attention_reference(q, k, v, scale: float):
@@ -249,7 +253,8 @@ class _HeadsAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function(
+                HEADS_BACKWARD):
             leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
             o = attention_reference_heads(*leaves, ctx.scale, ctx.residual)
             return (*torch.autograd.grad(o, leaves, g), None, None, None)
@@ -309,7 +314,8 @@ class _PooledAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function(
+                POOLED_BACKWARD):
             leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
             q, k, v, gq, bq, gk, bk, gv, bv = leaves
             o = pooled_attention_reference(q, k, v, (gq, bq), (gk, bk),

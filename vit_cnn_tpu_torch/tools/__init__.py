@@ -1,6 +1,6 @@
 """Measurement scripts for the card, each run from the repo root:
 
-  python -m vit_cnn_tpu_torch.tools.profile_train       # step profile
+  python -m vit_cnn_tpu_torch.tools.profile_train [--model M] # step profile
   python -m vit_cnn_tpu_torch.tools.train_conditioning  # gradient spread
   python -m vit_cnn_tpu_torch.tools.profile_serve       # serving profile
   python -m vit_cnn_tpu_torch.tools.scan_sweep          # K1's variants
@@ -10,10 +10,11 @@
 
 The first three build their models as ``chip_smoke.py`` does: at
 Houston2013 width on the Synthetic scene at 349 x 1905, with the seeded
-weights of ``convert.seeded_state_dict``. The two sweeps time the scan's
-and head-last attention's variants (ops/scan_variants.py,
-ops/heads_variants.py) at the serving shapes and the probes' shapes
-against their bounds (:func:`bound`, with CUDA-event medians,
+weights of ``convert.seeded_state_dict`` (:func:`model_state`);
+``profile_train`` takes ``--model`` (the flagship by default). The two
+sweeps time the scan's and head-last attention's variants
+(ops/scan_variants.py, ops/heads_variants.py) at the serving shapes and
+the probes' shapes against their bounds (:func:`bound`, with CUDA-event medians,
 :func:`median_ms`); ``chip_smoke.py`` calls the same functions.
 ``scan_ab`` times an older commit's K1 beside this checkout's V1 (8, 8),
 the first K1 kept as a template, on the same inputs (:func:`scan_inputs`);
@@ -130,26 +131,29 @@ def load_scene(crop: Optional[Tuple[int, int]] = None):
     return scene
 
 
-def flagship_step(scene, state, device, batch: int, bf16: bool = False,
-                  flip: bool = False, seed: int = 0):
-    """A Trainer of the flagship on ``device`` from ``state``, and one
-    batch of centers (the first of its seeded shuffle) with its ``valid``
-    mask and a zero loss sum: ``trainer._step(*args)`` runs one step."""
+def train_step(scene, state, device, batch: int,
+               model: str = "Multimodality_Mamba", bf16: bool = False,
+               flip: bool = False, seed: int = 0):
+    """A Trainer of the registered ``model`` on ``device`` from ``state``,
+    and one batch of centers (the first of its seeded shuffle) with its
+    ``valid`` mask and a zero loss sum: ``trainer._step(*args)`` runs one
+    step (the zoo's dropout and Gumbel noise from ``trainer.noise``, the
+    trainer's generator unless the caller sets another source)."""
     from ..models.registry import get_model
     from ..pipeline.patches import AugmentConfig, PatchPipeline
     from ..train.loop import Trainer
 
     img1, img2, gt = scene
     n_classes = int(SCENE["VCT_SYN_CLASSES"])
-    model, _, hp = get_model(
-        "Multimodality_Mamba", dataset="Synthetic", n_classes=n_classes,
+    net, _, hp = get_model(
+        model, dataset="Synthetic", n_classes=n_classes,
         n_bands=(img1.shape[2], img2.shape[2]), ignored_labels=[0],
         batch_size=batch, epoch=1, bf16=bf16, flip_augmentation=flip)
-    model.load_state_dict(state)
-    model.to(device)
+    net.load_state_dict(state)
+    net.to(device)
     pipe = PatchPipeline(img1, img2, gt, hp["patch_size"], [0], n_classes,
                          augment=AugmentConfig(flip=flip), device=device)
-    trainer = Trainer(model, hp, pipe, seed=seed)
+    trainer = Trainer(net, hp, pipe, seed=seed)
     centers = torch.as_tensor(
         pipe.epoch_order(np.random.RandomState(seed))[:batch], device=device)
     args = (centers, torch.ones(batch, device=device),
@@ -157,13 +161,13 @@ def flagship_step(scene, state, device, batch: int, bf16: bool = False,
     return trainer, args
 
 
-def flagship_state(scene, seed: int = 0):
-    """The seeded state_dict of the flagship for ``scene``'s bands."""
+def model_state(scene, model: str = "Multimodality_Mamba", seed: int = 0):
+    """The seeded state_dict of the registered ``model`` for ``scene``'s
+    bands."""
     from ..convert import seeded_state_dict
     from ..models.registry import get_model
 
     img1, img2, _ = scene
-    model = get_model("Multimodality_Mamba",
-                      n_classes=int(SCENE["VCT_SYN_CLASSES"]),
-                      n_bands=(img1.shape[2], img2.shape[2]))[0]
-    return seeded_state_dict(model, seed)
+    net = get_model(model, n_classes=int(SCENE["VCT_SYN_CLASSES"]),
+                    n_bands=(img1.shape[2], img2.shape[2]))[0]
+    return seeded_state_dict(net, seed)

@@ -1,9 +1,11 @@
-"""Profile steady flagship train steps on the card, by op family.
+"""Profile steady train steps on the card, by op family.
 
-  python -m vit_cnn_tpu_torch.tools.profile_train
+  python -m vit_cnn_tpu_torch.tools.profile_train [--model MODEL]
 
-bf16 over float32 master weights, batch 1024, flip/rotate on, one fixed
-batch, as ``chip_smoke.py``'s steady steps. After 3 warm-up steps it
+The flagship by default, or any registered model (the zoo: MHST,
+SpectralFormer, S2EFT, GLT_Net) with its seeded weights; bf16 over
+float32 master weights, batch 1024, flip/rotate on, one fixed batch, as
+``chip_smoke.py``'s steady steps. After 3 warm-up steps it
 times 5 steps on the host clock without the profiler, then 5 steps under
 ``torch.profiler``, and prints one JSON line:
 
@@ -16,20 +18,27 @@ times 5 steps on the host clock without the profiler, then 5 steps under
   lower bound, since the profiler's host cost adds idle time), and
   ``busy_unprofiled``: device ms over the unprofiled steps' host ms (the
   steps just before, in the same process);
-* ``families``: [family, device ms per step, share, launches per step].
+* ``families``: [family, device ms per step, share, launches per step];
+* ``plain_backward``: per profiler range around the plain backward of K8
+  and K9 (``ops/attention.py``), its device ms per step and share of the
+  step's device time (the kernels launched inside the range, from the
+  range's own GPU row where the profiler writes one, else from its CPU
+  row's device total); these kernels also sit in their families.
 
 Then the 25 kernels with the most device time. Run it where a card is.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import time
 
 import torch
 
-from . import card_line, flagship_state, flagship_step, load_scene
+from ..ops.attention import HEADS_BACKWARD, POOLED_BACKWARD
+from . import card_line, load_scene, model_state, train_step
 
 BATCH, WARM, STEPS = 1024, 3, 5
 
@@ -86,7 +95,10 @@ def _timed_steps(trainer, args, n: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / n
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", default="Multimodality_Mamba")
+    model = parser.parse_args(argv).model
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -95,16 +107,28 @@ def main() -> int:
 
     print(card_line(), flush=True)
     scene = load_scene()
-    trainer, step_args = flagship_step(scene, flagship_state(scene), "cuda",
-                                       BATCH, bf16=True, flip=True)
+    trainer, step_args = train_step(scene, model_state(scene, model), "cuda",
+                                    BATCH, model=model, bf16=True, flip=True)
     _timed_steps(trainer, step_args, WARM)
     host_ms = _timed_steps(trainer, step_args, STEPS)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms = _timed_steps(trainer, step_args, STEPS)
 
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
+    ranges = (HEADS_BACKWARD, POOLED_BACKWARD)
+    rows = prof.key_averages()
+    # a range's GPU row spans its kernels: kept out of the kernel sums
+    kernels = [e for e in rows if str(e.device_type).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)
+               and e.key not in ranges]
+    plain_bwd = {}
+    for name in ranges:
+        gpu = [_device_us(e) for e in rows if e.key == name
+               and str(e.device_type).endswith("CUDA")]
+        cpu = [e.device_time_total for e in rows if e.key == name
+               and not str(e.device_type).endswith("CUDA")]
+        if gpu or cpu:
+            plain_bwd[name] = (gpu or cpu)[0] / 1e3 / STEPS
     ms = collections.Counter()
     launches = collections.Counter()
     for e in kernels:
@@ -112,14 +136,16 @@ def main() -> int:
         launches[family(e.key)] += e.count / STEPS
     device_ms = sum(ms.values())
     print(json.dumps({
-        "batch": BATCH, "steps": STEPS,
+        "model": model, "batch": BATCH, "steps": STEPS,
         "host_ms_per_step": host_ms,
         "profiled_host_ms_per_step": profiled_ms,
         "device_ms_per_step": device_ms,
         "busy": device_ms / profiled_ms,
         "busy_unprofiled": device_ms / host_ms,
         "families": [(f, t, t / device_ms, launches[f])
-                     for f, t in ms.most_common()]}), flush=True)
+                     for f, t in ms.most_common()],
+        "plain_backward": {k: (t, t / device_ms)
+                           for k, t in plain_bwd.items()}}), flush=True)
     for e in sorted(kernels, key=_device_us, reverse=True)[:25]:
         print("{:9.3f} ms/step {:6.1f} launches  {}".format(
             _device_us(e) / 1e3 / STEPS, e.count / STEPS,

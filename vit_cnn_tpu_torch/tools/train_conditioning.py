@@ -20,13 +20,13 @@ import json
 
 import torch
 
-from . import card_line, flagship_state, flagship_step, load_scene
+from . import card_line, load_scene, model_state, train_step
 
 BATCH = 32
 
 
 def _step(scene, state, device):
-    trainer, args = flagship_step(scene, state, device, BATCH)
+    trainer, args = train_step(scene, state, device, BATCH)
     loss = float(trainer._step(*args))
     return loss, {k: p.grad.detach().double().cpu()
                   for k, p in trainer.model.named_parameters()}
@@ -54,7 +54,7 @@ def main() -> int:
     if card:
         print(card_line(), flush=True)
     scene = load_scene(crop=(40, 200))
-    state = flagship_state(scene)
+    state = model_state(scene)
     threads = torch.get_num_threads()
     runs = {"cpu": _step(scene, state, "cpu")}
     if card:

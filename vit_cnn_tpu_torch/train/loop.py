@@ -5,11 +5,13 @@ Port of :class:`vit_cnn_tpu.train.loop.Trainer` (ref: model_utils.py:854-
 
   patch gather with flip/rotate folded in (PatchPipeline.make_batch)
   -> forward in train mode (BatchNorm on batch statistics, running
-     statistics updated), under the bf16 policy over float32 master
-     weights when ``hyperparams["bf16"]``
-  -> weighted cross-entropy with the padded tail masked by ``valid``
+     statistics updated; the zoo's dropout and Gumbel noise drawn from
+     ``noise``), under the bf16 policy over float32 master weights when
+     ``hyperparams["bf16"]``
+  -> the model's loss (weighted cross-entropy, or ``glt`` for GLT_Net's
+     (logits, con_loss)) with the padded tail masked by ``valid``
   -> backward (on CUDA through the kernels' adjoints)
-  -> AdamW / Adam at the StepLR rate of this step.
+  -> AdamW / Adam / SGD at the StepLR rate of this step.
 
 The model and its optimizer are the train state (no twin of
 ``train/state.py``). The epoch loss sums on the device: the host reads it
@@ -19,7 +21,8 @@ does, writes the best-epoch and final-epoch checkpoint files
 (train/checkpoint.py) under ``checkpoint_root``, ``./checkpoints`` of the
 working directory by default. ``save_resumable`` / ``restore_resumable``
 write and read the whole train state: model, optimizer moments, step,
-the shuffle's RandomState and the augmentation generator.
+the shuffle's RandomState and the device generator (the augmentation's
+and the noise's).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from ..convert import state_dict_to_flax
+from ..nn import noise
 from ..nn.precision import bf16_train_apply
 from ..pipeline.patches import PatchPipeline
 from . import checkpoint as ckpt
@@ -68,8 +72,11 @@ def _host_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 class Trainer:
     """Trains one (model, pipeline) pair on the model's device. The model
     arrives with its parameters filled (``init_parameters`` or
-    ``load_state_dict``); ``seed`` seeds the shuffle (numpy) and the
-    augmentation draws (a torch.Generator on the device)."""
+    ``load_state_dict``); ``seed`` seeds the shuffle (numpy) and one
+    torch.Generator on the device, ``generator``, from which both the
+    augmentation and the zoo's dropout and Gumbel noise draw, in step
+    order. ``noise`` is the source of the forward's draws (:mod:`..nn.
+    noise`): ``generator`` unless a caller sets a Recorder or Replay."""
 
     def __init__(self, model: torch.nn.Module, hyperparams: Dict,
                  pipeline: PatchPipeline,
@@ -109,11 +116,13 @@ class Trainer:
             weight_decay=float(hyperparams.get("weight_decay", 0.0)),
             step_size=hyperparams.get("scheduler_step", 30),
             gamma=hyperparams.get("scheduler_gamma", 0.9))
+        self.optimizer_name = spec.name
         self.schedule = build_lr_schedule(spec, steps_per_epoch)
         self.optimizer = build_optimizer(spec, model.parameters())
         self.steps_done = 0
         self.np_rng = np.random.RandomState(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.noise: noise.Source = self.generator
 
         self.bf16 = bool(hyperparams.get("bf16"))
         if self.bf16:
@@ -132,10 +141,17 @@ class Trainer:
         p1, p2, labels = self.pipeline.make_batch(self.generator, centers,
                                                   train=True)
         self.model.train()
-        out = self._forward(p1, p2)
+        with noise.drawing(self.noise):
+            out = self._forward(p1, p2)
         loss = self.loss_fn(out, labels, self.class_weights, valid)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        for p in self.model.parameters():
+            if p.grad is None:
+                # a parameter the loss does not reach (S2EFT's gate conv,
+                # behind its hard gate) gets a zero gradient, as jax.grad
+                # gives it, so the optimizer steps every parameter
+                p.grad = torch.zeros_like(p)
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.steps_done)
         self.optimizer.step()
@@ -173,6 +189,10 @@ class Trainer:
     # restarted run continues with the same shuffle order and augmentation
     # draws (the JAX loop's save_resumable / restore_resumable).
     def save_resumable(self, path: str, epoch: int) -> str:
+        if self.optimizer_name == "sgd":
+            raise NotImplementedError(
+                "resumable states hold Adam moments; sgd's momentum trace "
+                "is not saved (ROADMAP Queue 1, 'Not ported yet')")
         rng_state = self.np_rng.get_state()
         extra = {"epoch": epoch,
                  "np_rng": [rng_state[0], np.asarray(rng_state[1]).tolist(),

@@ -1,10 +1,10 @@
-"""Loss functions of the flagship's train route.
+"""Loss functions of the ported models' train routes.
 
-Port of :func:`vit_cnn_tpu.train.losses.weighted_cross_entropy` and
-``ce_first_output``: torch.nn.CrossEntropyLoss(weight=w) semantics with a
-per-sample ``valid`` mask, so a padded last batch leaves the loss as it
-is. The zoo's other losses (cross_fusion, endnet, focal, glt) come with
-the models that use them (ROADMAP Queue 1).
+Port of :func:`vit_cnn_tpu.train.losses.weighted_cross_entropy`,
+``ce_first_output`` and ``glt_loss``: torch.nn.CrossEntropyLoss(weight=w)
+semantics with a per-sample ``valid`` mask, so a padded last batch leaves
+the cross-entropy as it is. The CNN zoo's losses (cross_fusion, endnet,
+focal) come with the models that use them (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -34,4 +34,14 @@ def ce_first_output(output, targets, class_weights=None, valid=None):
     return weighted_cross_entropy(logits, targets, class_weights, valid)
 
 
-LOSSES = {"cross_entropy": ce_first_output}
+def glt_loss(output, targets, class_weights=None, valid=None):
+    """GLT_Net's (logits, con_loss): the weighted cross-entropy of the
+    logits plus the in-model reconstruction loss (ref: GLT_Net.py:417-422).
+    ``valid`` masks the cross-entropy only: con_loss is the model's mean
+    over the whole batch, padded rows included, as in the JAX package."""
+    logits, con_loss = output
+    return (weighted_cross_entropy(logits, targets, class_weights, valid)
+            + con_loss)
+
+
+LOSSES = {"cross_entropy": ce_first_output, "glt": glt_loss}

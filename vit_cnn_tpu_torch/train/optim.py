@@ -7,7 +7,9 @@ given), which equals ``optax.adamw`` with eps 1e-8. The learning rate
 follows StepLR(step_size epochs, gamma) stepped per epoch and counted in
 optimizer steps: lr(step) = lr * gamma^((step // steps_per_epoch) //
 step_size), where step counts the updates already made (optax's count).
-``sgd`` comes with the zoo models that use it (ROADMAP Queue 1).
+``sgd`` is torch SGD with dampening 0: the weight decay added to the
+gradient, then the momentum trace, then the rate (optax
+``add_decayed_weights`` + ``trace`` + ``scale_by_learning_rate``).
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerSpec:
-    name: str = "adam"          # adam | adamw
+    name: str = "adam"          # adam | adamw | sgd
     lr: float = 1e-3
-    weight_decay: float = 0.0   # adam: L2-into-grad; adamw: decoupled
+    weight_decay: float = 0.0   # adam, sgd: L2-into-grad; adamw: decoupled
+    momentum: float = 0.0       # sgd only
     step_size: Optional[int] = 30
     gamma: float = 0.9
 
@@ -48,7 +51,7 @@ def build_optimizer(spec: OptimizerSpec, params) -> torch.optim.Optimizer:
                                  eps=1e-8,
                                  weight_decay=spec.weight_decay or 0.01)
     if spec.name == "sgd":
-        raise NotImplementedError(
-            "sgd is not ported yet: it comes with the zoo models that use "
-            "it (ROADMAP Queue 1, 'training: sgd')")
+        return torch.optim.SGD(params, lr=spec.lr, momentum=spec.momentum,
+                               dampening=0.0,
+                               weight_decay=spec.weight_decay)
     raise ValueError("unknown optimizer {}".format(spec.name))
