@@ -1499,8 +1499,10 @@ def _zoo_train_kernels(rows):
     on the strided q, k, v views of a fused qkv at 65, 145 and 146 tokens,
     4 heads of 16; K9 at MHST's (65, 16 x 4). Forward and gradients
     against the plain version's autograd, float32 and bf16; timed forward
-    and forward + (plain) backward beside the plain version's."""
+    and forward + (plain) backward beside the plain version's and, for K8,
+    SDPA's (its own fused backward) on the same transposed views."""
     import torch
+    import torch.nn.functional as F
 
     from vit_cnn_tpu_torch.ops import attention
     from vit_cnn_tpu_torch.tools import bound as _bound
@@ -1532,30 +1534,47 @@ def _zoo_train_kernels(rows):
                 return attention.attention_reference_heads(
                     *map(heads, x.chunk(3, -1)), 0.25)
 
+            def sdpa(x):
+                q, k, v = (heads(t).transpose(1, 2) for t in x.chunk(3, -1))
+                return F.scaled_dot_product_attention(
+                    q, k, v, scale=0.25).transpose(1, 2)
+
             got, (g_got,) = fwd_bwd(kernel, [qkv], cot)
             want, (g_want,) = fwd_bwd(plain, [qkv], cot)
             err = _compare("K8 train B={} n={} 4x16 ({})".format(B, n, who),
                            got, want, dn)
             _compare("K8 train gradient B={} n={}".format(B, n), g_got,
                      g_want, dn)
+            lib_out, (g_lib,) = fwd_bwd(sdpa, [qkv], cot)
+            # SDPA is timed, not held: its distance from the plain version
+            # shows that it computes the same function
+            print("    SDPA against the plain version: max|diff| {:.3e}, "
+                  "gradient {:.3e}".format(
+                      float((lib_out.float() - want.float()).abs().max()),
+                      float((g_lib.float() - g_want.float()).abs().max())),
+                  flush=True)
             with torch.no_grad():
                 t = _median_ms(lambda: kernel(qkv))
                 p = _median_ms(lambda: plain(qkv), reps=3)
+                lib = _median_ms(lambda: sdpa(qkv))
             tb = _median_ms(lambda: fwd_bwd(kernel, [qkv], cot))
             pb = _median_ms(lambda: fwd_bwd(plain, [qkv], cot), reps=3)
+            lb = _median_ms(lambda: fwd_bwd(sdpa, [qkv], cot))
             q, k, v = map(heads, qkv.detach().chunk(3, -1))
             bnd = _bound([q, k, v, got], dn, exps=B * 4 * n * n,
                          flops=4 * B * 4 * n * n * 16)
             print("    zoo train n={} {} ({}): kernel {:.3f} ms, plain "
-                  "{:.3f}; forward + plain backward {:.3f}, plain both "
-                  "{:.3f}; bound {:.3f} ({})".format(n, dn, who, t, p, tb,
-                                                     pb, *bnd), flush=True)
+                  "{:.3f}, sdpa {:.3f}; forward + backward: K8 with the "
+                  "plain backward {:.3f}, plain {:.3f}, sdpa {:.3f}; bound "
+                  "{:.3f} ({})".format(n, dn, who, t, p, lib, tb, pb, lb,
+                                       *bnd), flush=True)
             _timed(rows, "fused_attention_heads",
                    "zoo train (B={}, n={}, 4x16)".format(B, n), dn, ms=t,
-                   plain_ms=p, fwd_bwd_ms=tb, plain_fwd_bwd_ms=pb,
+                   plain_ms=p, library_ms=lib, fwd_bwd_ms=tb,
+                   plain_fwd_bwd_ms=pb, library_fwd_bwd_ms=lb,
                    bound_ms=bnd[0], bound_by=bnd[1])
             _record(rows, "fused_attention_heads", err, dn)
-            del qkv, cot, got, want, g_got, g_want
+            del qkv, cot, got, want, g_got, g_want, lib_out, g_lib
         n, h, hd = 65, 16, 4
         leaves = [randn(B, n, h * hd).to(dtype).requires_grad_()
                   for _ in range(3)]

@@ -440,9 +440,22 @@ def scene_env(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("model", ZOO)
-def test_cli_trains_a_zoo_model_on_the_cpu(tmp_path, scene_env, model):
+def test_cli_trains_a_zoo_model_on_the_cpu(tmp_path, scene_env, monkeypatch,
+                                           model):
     """One epoch through run_train: finite losses, a report, the best and
-    final files, and every parameter moved by its registry optimizer."""
+    final files, and every parameter moved by its registry optimizer: the
+    final file's parameters all differ from the initial ones, except
+    S2EFT's gate conv, whose gradient is zero (under Adam it stays put)."""
+    built = {}
+    real_trainer = cli.Trainer
+
+    def trainer(model, *a, **k):
+        built["model"] = model
+        built["initial"] = {n: p.detach().clone()
+                            for n, p in model.named_parameters()}
+        return real_trainer(model, *a, **k)
+
+    monkeypatch.setattr(cli, "Trainer", trainer)
     args = _args(tmp_path, model, "--runs", "1", "--epoch", "1", "--bf16",
                  "--flip_augmentation")
     result = cli.run_train(args)
@@ -452,6 +465,12 @@ def test_cli_trains_a_zoo_model_on_the_cpu(tmp_path, scene_env, model):
         assert os.path.exists(result[key])
     assert os.path.exists(tmp_path / "results" / "Synthetic_{}".format(
         model) / "report.txt")
+    final = ckpt.restore_state_dict(result["final_checkpoint"],
+                                    built["model"])
+    assert built["initial"]
+    for name, before in built["initial"].items():
+        moved = not torch.equal(final[name].float(), before.float())
+        assert moved != name.startswith("gate_conv."), name
 
 
 def _jax_variables(model, tmp_path):

@@ -97,10 +97,15 @@ class Conv(nn.Module):
                             self.bias)
         conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
         x, padding = x.movedim(-1, 1), self.padding
-        if nd == 3 and x.device.type == "cpu" and any(padding):
-            # the CPU's oneDNN 3-D conv corrupts the heap in its weight
-            # gradient at some padded shapes (MHST's strided stem over 7 or
-            # 8 bands); padded explicitly, the same conv does not
+        if (nd == 3 and x.device.type == "cpu" and any(padding)
+                and max(self.strides) > 1):
+            # torch 2.13.0 (CPU, oneDNN v3.12.0): the weight gradient of a
+            # strided, padded 3-D conv corrupts the heap. Smallest failing
+            # case: x (2, 1, 8, 1, 1), w (16, 1, 11, 1, 1), stride (3, 1, 1),
+            # padding (5, 0, 0), w.grad of the sum aborts or segfaults
+            # within 50 calls (MHST's stem over 7-8 bands); stride 1 or 2
+            # does not. Padded explicitly, the same conv does not. Drop this
+            # branch once that case passes.
             x = F.pad(x, [p for p in reversed(padding) for _ in (0, 1)])
             padding = 0
         y = conv(x, self.weight, self.bias, self.strides, padding, 1,

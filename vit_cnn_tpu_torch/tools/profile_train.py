@@ -21,9 +21,11 @@ times 5 steps on the host clock without the profiler, then 5 steps under
 * ``families``: [family, device ms per step, share, launches per step];
 * ``plain_backward``: per profiler range around the plain backward of K8
   and K9 (``ops/attention.py``), its device ms per step and share of the
-  step's device time (the kernels launched inside the range, from the
-  range's own GPU row where the profiler writes one, else from its CPU
-  row's device total); these kernels also sit in their families.
+  step's device time: the range's CPU row's device total, which sums the
+  kernels launched inside the range, as ``device_ms_per_step`` sums
+  kernels (the range's GPU row spans its first kernel to its last, idle
+  gaps included, and is not used); these kernels also sit in their
+  families.
 
 Then the 25 kernels with the most device time. Run it where a card is.
 """
@@ -123,12 +125,10 @@ def main(argv=None) -> int:
                and e.key not in ranges]
     plain_bwd = {}
     for name in ranges:
-        gpu = [_device_us(e) for e in rows if e.key == name
-               and str(e.device_type).endswith("CUDA")]
         cpu = [e.device_time_total for e in rows if e.key == name
                and not str(e.device_type).endswith("CUDA")]
-        if gpu or cpu:
-            plain_bwd[name] = (gpu or cpu)[0] / 1e3 / STEPS
+        if cpu:
+            plain_bwd[name] = sum(cpu) / 1e3 / STEPS
     ms = collections.Counter()
     launches = collections.Counter()
     for e in kernels:
