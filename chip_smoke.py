@@ -77,6 +77,21 @@ the result lines:
    plain version, V1's (8, 8) instance (the first K1) within the same
    tolerance of K1, and each variant kernel launched.
 
+10. cnn_zoo — run after the zoo phases: the CNN zoo (EndNet, the four
+   Hong fusion CNNs, S2ENet, FusAtNet, MFT, HCTnet) at registry widths
+   on the same scene, seeded weights through convert.py, model by model:
+   ``--serve`` under the bf16 policy for a warm and a resident request
+   (seconds and windows/s each, a finite (349, 1905, 15) map, request 2
+   uploading nothing; HCTnet on the 30-component PCA of the HSI, held
+   reduced in the scene cache), the 12 x 64 crop gates of phase 4, the
+   float32 train-crop step against the CPU (phase 6's limits; the bf16
+   loss within 5%; MFT's and HCTnet's dropout drawn on the CPU and
+   replayed), and steady bf16 train steps (ms/step, patches/s, peak
+   memory); then HCTnet's ``run_train`` (PCA on the way in) and its best
+   file through ``--serve --restore`` with the run's OA / AA / Kappa
+   exactly. No hand-written kernel lies on this path (the JAX CNN models
+   reach no Pallas kernel): every K1-K9 count stays 0.
+
 Phase 2 also holds K8 and K9 (float32 and bf16, at every zoo band shape,
 a ragged batch, one token, 17 tokens, odd hd and the 512-token limit) and
 times both dtypes beside their plain versions,
@@ -85,7 +100,7 @@ for K9, the composition of the plain group LayerNorm with K8.
 
 Then one JSON line with the kernel table (time, plain time, bound and what
 bounds it, library time, launches per path: serve, train, runloop,
-serve_zoo and sweep), and as the last line
+serve_zoo, train_zoo, cnn_zoo and sweep), and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -141,7 +156,7 @@ RESUME_EPOCHS, RESUME_SAVED = 3, 2
 RESUME_RTOL = 1e-5
 HEADS = ("fused_attention_heads", "pooled_heads_attention")
 ZOO = ("MHST", "SpectralFormer", "S2EFT", "GLT_Net")
-MHST_REQUESTS = 3
+MHST_REQUESTS = 2
 # K8 / K9 launches per full-scene request at --infer_chunk 8192 on the
 # 349 x 1905 scene: bands (4 origin rows each) x launches per band. MHST
 # (patch 8): 86 bands x 5 ViT layers, 86 x 8 pooled blocks; SpectralFormer
@@ -164,6 +179,13 @@ MHST_POOLED_BLOCKS = 8
 # the tokens of each zoo ViT in training (K8's train shapes)
 ZOO_TRAIN_TOKENS = ((65, "MHST, GLT_Net"), (145, "S2EFT"),
                     (146, "SpectralFormer"))
+# phase cnn_zoo: the CNN zoo (no hand-written kernel on its path), and the
+# model whose run_train and best file it checks (PCA on the way in)
+CNN_ZOO = ("EndNet", "Early_fusion_CNN", "Middle_fusion_CNN",
+           "Late_fusion_CNN", "Cross_fusion_CNN", "S2ENet", "FusAtNet",
+           "MFT", "HCTnet")
+CNN_HANDOFF = "HCTnet"
+PATH_KERNELS = FORWARD + ADJOINTS + HEADS
 # phase 9: the sweep tools' variant kernels (rows 10-13 of the table);
 # their cases at fewer repetitions, plus a ragged batch and one token
 VARIANTS = ("selective_scan_tiled", "selective_scan_batch_major",
@@ -1620,7 +1642,7 @@ def _zoo_train_kernels(rows):
     torch.cuda.synchronize()
 
 
-def _zoo_train_crop(tmp, name, state, attn_drop_0=False):
+def _zoo_train_crop(tmp, name, state, attn_drop_0=False, tag="zoo_train"):
     """One float32 train step of ``name`` on the card and on the CPU
     (plain versions) from ``state`` and the same 32 centers, flip off, the
     dropout and Gumbel noise drawn once on the CPU and replayed on the
@@ -1669,12 +1691,12 @@ def _zoo_train_crop(tmp, name, state, attn_drop_0=False):
                    for k, v in s_cpu.items()] or [(0.0, "none")])
     dl = abs(loss_gpu - loss_cpu)
     db = abs(loss_b16 - loss_gpu) / abs(loss_gpu)
-    print("[zoo_train] {} crop step ({} draws of noise): loss card f32 "
+    print("[{}] {} crop step ({} draws of noise): loss card f32 "
           "{:.6f} cpu f32 {:.6f} |diff| {:.2e}; {} gradients: worst "
           "||diff|| {:.3f} of its limit ({}); {} BN statistics: worst {:.3f} "
           "of its limit ({}); card bf16 loss {:.6f}, {:.2%} from f32 (limit "
           "{:.0%}); card launches {}".format(
-              label, len(rec.draws), loss_gpu, loss_cpu, dl, len(g_cpu),
+              tag, label, len(rec.draws), loss_gpu, loss_cpu, dl, len(g_cpu),
               worst_g[0], worst_g[1], len(s_cpu), worst_s[0], worst_s[1],
               loss_b16, db, BF16_LOSS_TOL, json.dumps(counts)), flush=True)
     if dl > 1e-3 * abs(loss_cpu) or worst_g[0] > 1.0 or worst_s[0] > 1.0 \
@@ -1684,18 +1706,19 @@ def _zoo_train_crop(tmp, name, state, attn_drop_0=False):
     return counts
 
 
-def _zoo_handoff(tmp, work, result, test_gt, card):
-    """MHST's best file served through --serve --restore: the served OA,
-    AA and Kappa equal the run's exactly."""
+def _zoo_handoff(tmp, work, result, test_gt, card, name="MHST",
+                 tag="zoo_train"):
+    """``name``'s best file served through --serve --restore: the served
+    OA, AA and Kappa equal the run's exactly."""
     import numpy as np
 
     from vit_cnn_tpu_torch import cli
 
     best = os.path.join(work, result["best_checkpoint"])
-    gt_path = os.path.join(work, "MHST_test_gt.npy")
+    gt_path = os.path.join(work, "{}_test_gt.npy".format(name))
     np.save(gt_path, test_gt)
     args = cli.build_parser().parse_args([
-        "--dataset", "Synthetic", "--folder", tmp, "--model", "MHST",
+        "--dataset", "Synthetic", "--folder", tmp, "--model", name,
         "--bf16", "--serve", "--restore", best])
     in_s = io.StringIO(json.dumps({"gt": gt_path}) + "\n"
                        + json.dumps({"cmd": "quit"}) + "\n")
@@ -1703,16 +1726,115 @@ def _zoo_handoff(tmp, work, result, test_gt, card):
     served = cli.run_serve(args, in_stream=in_s, out_stream=out_s)
     resps = [json.loads(l) for l in out_s.getvalue().splitlines() if l]
     if served != 1 or not resps or not resps[0].get("ok"):
-        raise Failed("MHST's best file was not served: {}".format(resps))
+        raise Failed("{}'s best file was not served: {}".format(name, resps))
     r = resps[0]
     same = all(r[k] == result[k] for k in ("OA", "AA", "Kappa"))
-    print("[zoo_train] MHST best file served ({:.3f} s; {}): OA {} AA {} "
+    print("[{}] {} best file served ({:.3f} s; {}): OA {} AA {} "
           "Kappa {} against the run's {} {} {}: {}".format(
-              r["seconds"], card, r["OA"], r["AA"], r["Kappa"], result["OA"],
-              result["AA"], result["Kappa"],
+              tag, name, r["seconds"], card, r["OA"], r["AA"], r["Kappa"],
+              result["OA"], result["AA"], result["Kappa"],
               "equal" if same else "DIFFERENT"), flush=True)
     if not same:
-        raise Failed("MHST's restored OA / AA / Kappa differ from the run's")
+        raise Failed("{}'s restored OA / AA / Kappa differ from the run's"
+                     .format(name))
+
+
+def _run_train(tmp, work, name, state, card, tag):
+    """run_train of ``name`` at registry width from ``state`` (bf16, batch
+    TRAIN_BATCH, flip on, 200 centers a class, ZOO_TRAIN_EPOCHS epochs) in
+    ``work``; returns (result, its test split, its kernel launches)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vit_cnn_tpu_torch import cli
+    from vit_cnn_tpu_torch.ops import _build
+
+    splits = []
+    real_load = cli._load_gt_pair
+
+    def load_gt_pair(*args, **kwargs):
+        splits.append(real_load(*args, **kwargs))
+        return splits[-1]
+
+    cwd = os.getcwd()
+    os.chdir(work)                  # ./checkpoints and ./results here
+    stdout = io.StringIO()
+    try:
+        cli._load_gt_pair = load_gt_pair
+        args = cli.build_parser().parse_args([
+            "--dataset", "Synthetic", "--folder", tmp, "--model", name,
+            "--bf16", "--batch_size", str(TRAIN_BATCH),
+            "--flip_augmentation", "--runs", "1", "--epoch",
+            str(ZOO_TRAIN_EPOCHS), "--training_sample", "200",
+            "--out_dir", os.path.join(work, "results"), "--log_every", "1"])
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            result = cli.run_train(args, state_dict=state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launches)
+    finally:
+        cli._load_gt_pair = real_load
+        os.chdir(cwd)
+    print("[{}] {} run_train {:.1f} s ({}): {} centers, epoch losses {}, "
+          "val {}, OA {:.2f} AA {:.4f} Kappa {:.4f}; launches {}".format(
+              tag, name, wall, card, result["train_samples"],
+              result["losses"], result["val_accuracies"], result["OA"],
+              result["AA"], result["Kappa"], json.dumps(counts)), flush=True)
+    files = [os.path.join(work, result[k] or "")
+             for k in ("best_checkpoint", "final_checkpoint")]
+    if not all(np.isfinite(result["losses"])) or \
+            not all(os.path.isfile(f) for f in files):
+        raise Failed("{}: run_train gave a non-finite loss or no checkpoint "
+                     "file".format(name))
+    return result, splits[-1][1], counts
+
+
+def _steady(scene, state, name, card, tag, want):
+    """ZOO_STEADY_STEPS bf16 steps of ``name`` on one batch of TRAIN_BATCH
+    centers (flip on) after one untimed step: ms/step, patches/s and peak
+    memory; fails unless the launches equal ``want``, every loss is
+    finite and every parameter is still float32."""
+    import numpy as np
+    import torch
+
+    from vit_cnn_tpu_torch.ops import _build
+    from vit_cnn_tpu_torch.tools import train_step
+
+    trainer, step_args = train_step(scene, state, "cuda", TRAIN_BATCH,
+                                    model=name, bf16=True, flip=True,
+                                    seed=SEED)
+    first = trainer._step(*step_args)                  # not timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    losses = [trainer._step(*step_args) for _ in range(ZOO_STEADY_STEPS)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(first)] + [float(x) for x in losses]
+    figures = {"ms_per_step": 1e3 * secs / ZOO_STEADY_STEPS,
+               "patches_per_s": ZOO_STEADY_STEPS * TRAIN_BATCH / secs,
+               "peak_gb": peak / 1e9}
+    print("[{}] {} steady: {} steps of {}: {:.2f} ms/step, {:.0f} "
+          "patches/s, peak device memory {:.2f} GB ({}); losses {}; "
+          "launches {} (expected {})".format(
+              tag, name, ZOO_STEADY_STEPS, TRAIN_BATCH,
+              figures["ms_per_step"], figures["patches_per_s"], peak / 1e9,
+              card, " ".join("{:.4f}".format(x) for x in losses),
+              json.dumps(got), json.dumps(want)), flush=True)
+    off = [k for k, p in trainer.model.named_parameters()
+           if p.dtype != torch.float32]
+    if got != want or not all(np.isfinite(losses)) or off:
+        raise Failed("{}: steady steps launched {} (expected {}), or a "
+                     "non-finite loss, or parameters left float32: {}"
+                     .format(name, got, want, off))
+    return figures, got
 
 
 def phase_zoo_train(tmp, rows, card):
@@ -1722,15 +1844,7 @@ def phase_zoo_train(tmp, rows, card):
     ViT layer a step), the card-against-CPU crop step, and MHST's best
     file served back. Returns (run_train's launches per model, the steady
     figures per model)."""
-    import contextlib
-
-    import numpy as np
-    import torch
-
-    from vit_cnn_tpu_torch import cli
     from vit_cnn_tpu_torch.data import get_dataset
-    from vit_cnn_tpu_torch.ops import _build
-    from vit_cnn_tpu_torch.tools import train_step
 
     _zoo_train_kernels(rows)
     work = os.path.join(tmp, "zoo_train")
@@ -1741,85 +1855,15 @@ def phase_zoo_train(tmp, rows, card):
     counts, steady = {}, {}
     for name in ZOO:
         state = _seeded_state(name, n_bands, n_classes)
-        splits = []
-        real_load = cli._load_gt_pair
-
-        def load_gt_pair(*args, **kwargs):
-            splits.append(real_load(*args, **kwargs))
-            return splits[-1]
-
-        cwd = os.getcwd()
-        os.chdir(work)                  # ./checkpoints and ./results here
-        stdout = io.StringIO()
-        try:
-            cli._load_gt_pair = load_gt_pair
-            args = cli.build_parser().parse_args([
-                "--dataset", "Synthetic", "--folder", tmp, "--model", name,
-                "--bf16", "--batch_size", str(TRAIN_BATCH),
-                "--flip_augmentation", "--runs", "1", "--epoch",
-                str(ZOO_TRAIN_EPOCHS), "--training_sample", "200",
-                "--out_dir", os.path.join(work, "results"), "--log_every",
-                "1"])
-            _build.launches.clear()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(stdout):
-                result = cli.run_train(args, state_dict=state)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts[name] = dict(_build.launches)
-        finally:
-            cli._load_gt_pair = real_load
-            os.chdir(cwd)
-        print("[zoo_train] {} run_train {:.1f} s ({}): {} centers, epoch "
-              "losses {}, val {}, OA {:.2f} AA {:.4f} Kappa {:.4f}; "
-              "launches {}".format(
-                  name, wall, card, result["train_samples"],
-                  result["losses"], result["val_accuracies"], result["OA"],
-                  result["AA"], result["Kappa"], json.dumps(counts[name])),
-              flush=True)
-        files = [os.path.join(work, result[k] or "")
-                 for k in ("best_checkpoint", "final_checkpoint")]
-        if not all(np.isfinite(result["losses"])) or \
-                counts[name].get("fused_attention_heads", 0) <= 0 or \
-                not all(os.path.isfile(f) for f in files):
-            raise Failed("{}: run_train gave a non-finite loss, no K8 launch "
-                         "or no checkpoint file".format(name))
-
-        trainer, step_args = train_step(scene, state, "cuda", TRAIN_BATCH,
-                                        model=name, bf16=True, flip=True,
-                                        seed=SEED)
-        first = trainer._step(*step_args)                  # not timed
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _build.launches.clear()
-        t0 = time.perf_counter()
-        losses = [trainer._step(*step_args) for _ in range(ZOO_STEADY_STEPS)]
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        got = dict(_build.launches)
-        peak = torch.cuda.max_memory_allocated()
-        losses = [float(first)] + [float(x) for x in losses]
+        result, test_gt, counts[name] = _run_train(tmp, work, name, state,
+                                                   card, "zoo_train")
+        if counts[name].get("fused_attention_heads", 0) <= 0:
+            raise Failed("{}: run_train launched no K8".format(name))
         want = {"fused_attention_heads": ZOO_TRAIN_K8[name] * ZOO_STEADY_STEPS}
-        steady[name] = {"ms_per_step": 1e3 * secs / ZOO_STEADY_STEPS,
-                        "patches_per_s": ZOO_STEADY_STEPS * TRAIN_BATCH / secs,
-                        "peak_gb": peak / 1e9,
-                        "k8_per_step": got.get("fused_attention_heads", 0)
-                        / ZOO_STEADY_STEPS}
-        print("[zoo_train] {} steady: {} steps of {}: {:.2f} ms/step, {:.0f} "
-              "patches/s, peak device memory {:.2f} GB ({}); losses {}; "
-              "launches {} (expected {})".format(
-                  name, ZOO_STEADY_STEPS, TRAIN_BATCH,
-                  steady[name]["ms_per_step"],
-                  steady[name]["patches_per_s"], peak / 1e9, card,
-                  " ".join("{:.4f}".format(x) for x in losses),
-                  json.dumps(got), json.dumps(want)), flush=True)
-        off = [k for k, p in trainer.model.named_parameters()
-               if p.dtype != torch.float32]
-        if got != want or not all(np.isfinite(losses)) or off:
-            raise Failed("{}: steady steps launched {} (expected {}), or a "
-                         "non-finite loss, or parameters left float32: {}"
-                         .format(name, got, want, off))
-        del trainer, step_args
+        steady[name], got = _steady(scene, state, name, card, "zoo_train",
+                                    want)
+        steady[name]["k8_per_step"] = got.get("fused_attention_heads", 0) \
+            / ZOO_STEADY_STEPS
         _zoo_train_crop(tmp, name, state)
         if name == "MHST":
             k9 = _zoo_train_crop(tmp, name, state, attn_drop_0=True).get(
@@ -1827,8 +1871,117 @@ def phase_zoo_train(tmp, rows, card):
             if k9 != MHST_POOLED_BLOCKS:
                 raise Failed("MHST at attn_drop 0 launched K9 {} times in a "
                              "step, not {}".format(k9, MHST_POOLED_BLOCKS))
-            _zoo_handoff(tmp, work, result, splits[-1][1], card)
+            _zoo_handoff(tmp, work, result, test_gt, card)
     return counts, steady
+
+
+def phase_cnn_zoo(tmp, card):
+    """The CNN zoo at registry widths on the same scene, seeded weights,
+    model by model: the --serve path (bf16, a warm and a resident request;
+    HCTnet on 30 PCA components, its reduced scene resident on request 2),
+    the 12 x 64 crop on the card (float32, bf16) against the CPU's float32,
+    the float32 train step on the card against the CPU's (32 centers, flip
+    off; the bf16 loss beside it), steady bf16 train steps; then HCTnet's
+    run_train and its best file served back. No hand-written kernel lies
+    on this path: every K1-K9 count stays 0. Returns (the serving runs'
+    launches per model, the training run's, the figures per model)."""
+    import numpy as np
+
+    from vit_cnn_tpu_torch.cli import build_parser, run_serve
+    from vit_cnn_tpu_torch.data import get_dataset
+    from vit_cnn_tpu_torch.infer.fullscene import full_scene_probabilities
+    from vit_cnn_tpu_torch.models.registry import MODELS, get_model
+    from vit_cnn_tpu_torch.ops import _build
+
+    scene = get_dataset("Synthetic", tmp)[:3]
+    img1, img2 = scene[:2]
+    h, w = img1.shape[:2]
+    n_bands = (img1.shape[2], img2.shape[2])
+    n_classes = int(SCENE["VCT_SYN_CLASSES"])
+    crop = tuple(x[:12, :64] for x in (img1, img2))
+    serve_counts, figures, failed = {}, {}, []
+    for name in CNN_ZOO:
+        state = _seeded_state(name, n_bands, n_classes)
+        p = MODELS[name].patch_size
+        windows = (h - p + 1) * (w - p + 1)
+        out = os.path.join(tmp, "{}.npy".format(name))
+        args = build_parser().parse_args([
+            "--dataset", "Synthetic", "--folder", tmp, "--model", name,
+            "--bf16", "--serve", "--seed", str(SEED)])
+        in_s = io.StringIO("{}\n" + json.dumps({"out": out}) + "\n")
+        out_s = io.StringIO()
+        _build.launches.clear()
+        served = run_serve(args, in_stream=in_s, out_stream=out_s,
+                           state_dict=state)
+        serve_counts[name] = dict(_build.launches)
+        resps = [json.loads(l) for l in out_s.getvalue().splitlines() if l]
+        if served != 2 or not all(r.get("ok") for r in resps):
+            raise Failed("{} did not answer 2 requests ok: {}".format(
+                name, resps))
+        probs = np.load(out)
+        finite = bool(np.isfinite(probs).all())
+        f = figures[name] = {
+            "request_s": [r["seconds"] for r in resps],
+            "windows_per_s": [windows / r["seconds"] for r in resps],
+            "uploads": [r["uploads"] for r in resps]}
+        print("[cnn_zoo] {} serve ({}): {} windows; warm {:.3f} s ({:.0f} "
+              "windows/s), resident {:.3f} s ({:.0f} windows/s); uploads "
+              "{}; map {} finite={}; launches {}".format(
+                  name, card, windows, f["request_s"][0],
+                  f["windows_per_s"][0], f["request_s"][1],
+                  f["windows_per_s"][1], f["uploads"], probs.shape, finite,
+                  json.dumps(serve_counts[name])), flush=True)
+        if probs.shape != (h, w, n_classes) or not finite or \
+                f["uploads"][1] != 0 or serve_counts[name]:
+            raise Failed("{}: bad map, a scene uploaded again or a kernel "
+                         "launched".format(name))
+
+        def crop_map(device, bf16):
+            model, _, hp = get_model(name, n_classes=n_classes,
+                                     n_bands=n_bands)
+            model.load_state_dict(state)
+            model.to(device).eval()
+            return full_scene_probabilities(model, crop[0], crop[1],
+                                            dict(hp, bf16=bf16))
+
+        cpu, f32, b16 = (crop_map("cpu", False), crop_map("cuda", False),
+                         crop_map("cuda", True))
+        inner = (slice(p // 2, p // 2 + 12 - p + 1),
+                 slice(p // 2, p // 2 + 64 - p + 1))
+        scale = max(1.0, float(np.abs(cpu).max()))
+        d32 = float(np.abs(f32 - cpu).max())
+        agree16 = float((b16[inner].argmax(-1) == cpu[inner].argmax(-1))
+                        .mean())
+        print("[cnn_zoo] {} crop: card f32 vs cpu f32 max|diff| {:.3e} "
+              "(limit {:.1e}); card bf16 argmax agreement {:.4f} (limit "
+              "0.99) over {} windows".format(
+                  name, d32, CROP_TOL * scale, agree16,
+                  cpu[inner].shape[0] * cpu[inner].shape[1]), flush=True)
+        if d32 > CROP_TOL * scale or agree16 < 0.99:
+            failed.append(name)
+        if _zoo_train_crop(tmp, name, state, tag="cnn_zoo"):
+            raise Failed("{}'s train step launched a kernel".format(name))
+        f.update(_steady(scene, state, name, card, "cnn_zoo", {})[0])
+    if failed:
+        raise Failed("CNN crop maps disagree with the CPU plain path: {}"
+                     .format(failed))
+    work = os.path.join(tmp, "cnn_zoo")
+    os.makedirs(work)
+    name = CNN_HANDOFF
+    state = _seeded_state(name, n_bands, n_classes)
+    result, test_gt, train_counts = _run_train(tmp, work, name, state, card,
+                                               "cnn_zoo")
+    _zoo_handoff(tmp, work, result, test_gt, card, name, "cnn_zoo")
+    launched = dict(train_counts)
+    for c in serve_counts.values():
+        for k, n in c.items():
+            launched[k] = launched.get(k, 0) + n
+    print("[cnn_zoo] K1-K9 launches over the CNN zoo's serving and {}'s "
+          "training: {}".format(name, json.dumps(
+              {k: launched.get(k, 0) for k in PATH_KERNELS})), flush=True)
+    if launched:
+        raise Failed("the CNN zoo launched kernels: {}".format(launched))
+    return serve_counts, {name: train_counts}, figures
 
 
 def main():
@@ -1867,6 +2020,8 @@ def main():
                 phase_zoo_crop(tmp)
                 zoo_train_counts, zoo_steady = phase_zoo_train(tmp, rows,
                                                                card)
+                cnn_serve_counts, cnn_train_counts, cnn_figures = \
+                    phase_cnn_zoo(tmp, card)
             finally:
                 os.chdir(here)
     except Failed as e:
@@ -1922,9 +2077,11 @@ def main():
            for k in sources}
     zoo_train = {k: sum(c.get(k, 0) for c in zoo_train_counts.values())
                  for k in sources}
+    cnn = {k: sum(c.get(k, 0) for c in list(cnn_serve_counts.values())
+                  + list(cnn_train_counts.values())) for k in sources}
     paths = {"serve": counts, "train": train_counts,
              "runloop": runloop_counts, "serve_zoo": zoo,
-             "train_zoo": zoo_train, "sweep": sweep_counts}
+             "train_zoo": zoo_train, "cnn_zoo": cnn, "sweep": sweep_counts}
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
                   launches=paths["train" if name in ADJOINTS else
                                  "serve_zoo" if name in HEADS else
@@ -1937,6 +2094,7 @@ def main():
              for name, (src, rep) in sources.items()]
     print("[train] {}".format(json.dumps(steady)), flush=True)
     print("[zoo_train] {}".format(json.dumps(zoo_steady)), flush=True)
+    print("[cnn_zoo] {}".format(json.dumps(cnn_figures)), flush=True)
     print(card, flush=True)                  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

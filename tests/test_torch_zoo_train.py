@@ -576,6 +576,8 @@ def test_bf16_step_keeps_float32_state_and_restores_strictly(
                                      bf16=True, flip=True)
     assert torch.isfinite(trainer._step(*args))
     net = trainer.model
+    for k, p in net.named_parameters():
+        assert torch.isfinite(p).all(), k
     assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
                for p in net.parameters())
     stats = {k: v for k, v in net.state_dict().items()

@@ -38,6 +38,7 @@ import torch
 
 from ..data import compute_imf_weights, dataset_names, get_dataset
 from ..data.io import open_file
+from ..data.normalize import apply_pca
 from ..data.sampling import sample_gt
 from ..infer.fullscene import full_scene_probabilities
 from ..infer.server import SceneServer
@@ -55,7 +56,7 @@ from ..utils.viz import ArtifactWriter
 
 #: flags of the JAX command line the port does not take yet (ROADMAP
 #: Queue 1; --download is not to port)
-LEFT_OUT = ("applyPCA", "radiation_augmentation", "mixture_augmentation",
+LEFT_OUT = ("radiation_augmentation", "mixture_augmentation",
             "download", "n_devices", "no_mesh", "debug_nans", "pretrain",
             "cos", "queue_size", "moco_momentum", "moco_temperature")
 
@@ -66,6 +67,10 @@ def build_parser() -> argparse.ArgumentParser:
                     "a GPU (PyTorch + CUDA port of vit_cnn_tpu)")
     parser.add_argument("--dataset", type=str, default="MUUFL",
                         choices=dataset_names(), help="Dataset to use.")
+    parser.add_argument("--applyPCA", type=bool, default=None,
+                        help="optional, if absent will be set by the model "
+                             "(HCTnet: 30 whitened PCA components of the "
+                             "HSI)")
     parser.add_argument("--model", type=str, default="Multimodality_Mamba",
                         help="Model to train or serve. Available: " +
                              ", ".join(model_names()))
@@ -160,7 +165,7 @@ def _device(name: str) -> torch.device:
 def _check_stride(args) -> None:
     if args.test_stride != 1:
         raise NotImplementedError(
-            "--test_stride {}: only stride 1 is ported (ROADMAP Queue 1 #5, "
+            "--test_stride {}: only stride 1 is ported (ROADMAP Queue 1 #1, "
             "'stride > 1')".format(args.test_stride))
 
 
@@ -313,14 +318,18 @@ def _run(args, state_dict, run: int, setup: _Setup):
         val_gt = sample_gt(train_gt, 0.95, mode="random")[1]
 
     device = setup.device
+    # a PCA model trains on the whitened PCA of the HSI; the full-scene
+    # map below reduces the scene itself (infer/fullscene.py)
+    img1_model = (apply_pca(img1, int(hp["pca_components"]))
+                  if hp.get("applyPCA") else img1)
     aug = AugmentConfig(flip=hp.get("flip_augmentation", False),
                         radiation=hp.get("radiation_augmentation", False),
                         mixture=hp.get("mixture_augmentation", False))
-    pipe = PatchPipeline(img1, img2, train_gt, hp["patch_size"],
+    pipe = PatchPipeline(img1_model, img2, train_gt, hp["patch_size"],
                          hp["ignored_labels"], n_classes, augment=aug,
                          supervision=hp.get("supervision", "full"),
                          device=device)
-    val_pipe = PatchPipeline(img1, img2, val_gt, hp["patch_size"],
+    val_pipe = PatchPipeline(img1_model, img2, val_gt, hp["patch_size"],
                              hp["ignored_labels"], n_classes, device=device)
     if state_dict is None:
         init_parameters(model, model_seed)

@@ -10,8 +10,8 @@ the array's shape; a ``kernel`` goes by the module's ``flax_kernel``:
                              (out, in / groups, *k), 1-D to 3-D kernels
                      "taps"  (k, 1, d) depthwise taps   -> weight (k, d)
   params/.../scale   LayerNorm / BatchNorm             -> weight
-  params/.../<other> bias, pos_embed, A_log, cls_token, skipcat0, ...
-                                                       -> same name, shape
+  params/.../<other> bias, pos_embed, A_log, cls_token, skipcat0,
+                     token_wA, dim_reduce, ...          -> same name, shape
   batch_stats/.../mean, var                 -> running_mean, running_var
 
 Variables are nested dicts of numpy arrays (a flax variable tree after
@@ -140,9 +140,13 @@ def state_dict_to_flax(model: nn.Module,
     return tree
 
 
-#: learned tokens and positions of the transformer zoo
+#: learned tokens and positions of the transformer zoo, MFT and HCTnet
 _TOKEN_LEAVES = ("cls_token", "pos_embedding", "encoder_pos_embed",
-                 "decoder_pos_embed")
+                 "decoder_pos_embed", "position_embeddings")
+#: matrices contracted over their last axis: MFT's and HCTnet's token
+#: pooling (token_wA, token_wV, ...), S2ENet's affinity reductions
+_MIXING_LEAVES = ("token_wA", "token_wV", "token_wA_L", "token_wV_L",
+                  "dim_reduce")
 #: learned mixing scalars of MHST and GLT_Net (shape (1,))
 _SCALAR_LEAVES = ("weight_hsi", "weight_lidar", "vit_cls_coefficient",
                   "cnn_cls_coefficient", "xishu1", "xishu2", "coefficient1",
@@ -183,6 +187,8 @@ def seeded_variables(variables: Dict, seed: int) -> Dict:
                 v = 0.02 * rng.randn(*shape)
             elif leaf in _TOKEN_LEAVES:
                 v = 0.5 * rng.randn(*shape)
+            elif leaf in _MIXING_LEAVES:
+                v = rng.randn(*shape) / np.sqrt(shape[-1])
             elif leaf in _SCALAR_LEAVES:
                 v = 0.5 + 0.1 * rng.randn(*shape)
             elif leaf.startswith("skipcat") and leaf.endswith("_bias"):

@@ -8,7 +8,9 @@ model runs on the whole band, and each window's logits add into its
 center pixel of an (H, W, K) float32 map with one contiguous slice add.
 Border pixels receive no probability mass (ref: model_utils.py:1127-1131).
 
-Stride > 1 (the generic per-origin path) raises for now.
+Stride > 1 (the generic per-origin path) raises for now. A PCA model's
+HSI is reduced on the host once per scene and kept PCA'd in the
+:class:`SceneCache` (the JAX package reduces it again on every request).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..data.normalize import apply_pca
 from ..nn.precision import bf16_apply
 
 
@@ -26,14 +29,20 @@ class SceneCache:
     """Device-resident scenes, so a repeated request on a scene skips its
     upload. Keyed by the id() of the host array with a weakref finalizer
     (the entry goes when the caller drops the array); a host array
-    mutated in place is not re-uploaded. On the CPU the cached tensor
-    aliases the host array and keeps its entry alive until :meth:`drop`."""
+    mutated in place is not re-uploaded. A PCA model's scene is cached
+    PCA'd, per component count, under its host array's entry, so it goes
+    with the scene. On the CPU the cached tensor aliases the host array
+    (or its PCA) and keeps its entry alive until :meth:`drop`."""
 
     def __init__(self):
         self._entries: Dict[int, tuple] = {}
         self.uploads = 0
 
-    def get(self, img, dtype: torch.dtype, device) -> torch.Tensor:
+    def get(self, img, dtype: torch.dtype, device,
+            pca: int = 0) -> torch.Tensor:
+        """The scene on ``device`` in ``dtype``; with ``pca`` > 0 its
+        whitened PCA to that many components (:func:`..data.normalize.
+        apply_pca`), computed once."""
         base = img if isinstance(img, np.ndarray) else np.asarray(img)
         entry = self._entries.get(id(base))
         if entry is None or entry[0]() is not base:
@@ -41,9 +50,10 @@ class SceneCache:
                               d.pop(k, None))
             entry = (ref, {})
             self._entries[id(base)] = entry
-        key = (str(device), dtype)
+        key = (str(device), dtype, pca)
         if key not in entry[1]:
-            host = torch.from_numpy(np.ascontiguousarray(base, np.float32))
+            host = apply_pca(base, pca) if pca else base
+            host = torch.from_numpy(np.ascontiguousarray(host, np.float32))
             entry[1][key] = host.to(device).to(dtype)
             self.uploads += 1
         return entry[1][key]
@@ -95,7 +105,10 @@ def full_scene_probabilities(model: torch.nn.Module, img1: np.ndarray,
 
     ``hyperparams["bf16"]`` serves under the bf16 policy (the model is
     cast in place, the scene is held in bf16, the map accumulates in
-    float32). The map comes back to the host as a numpy array."""
+    float32). With ``hyperparams["applyPCA"]`` the HSI goes through the
+    model's own ``pca_components`` (the reference hardcodes 3,
+    QUIRKS.md), memoised in ``cache``. The map comes back to the host as a
+    numpy array."""
     patch_size = int(hyperparams["patch_size"])
     n_classes = int(hyperparams["n_classes"])
     step = int(hyperparams.get("test_stride", 1))
@@ -103,15 +116,15 @@ def full_scene_probabilities(model: torch.nn.Module, img1: np.ndarray,
         raise NotImplementedError(
             "test_stride {} > 1: the generic per-origin path is ROADMAP "
             "Queue 1, 'stride > 1'".format(step))
-    if hyperparams.get("applyPCA"):
-        raise NotImplementedError("PCA models are not ported yet")
 
     device = next(model.parameters()).device
     bf16 = bool(hyperparams.get("bf16"))
     dtype = torch.bfloat16 if bf16 else torch.float32
     apply_fn = bf16_apply(model) if bf16 else model
     cache = cache if cache is not None else SceneCache()
-    scene1 = cache.get(img1, dtype, device)
+    pca = (int(hyperparams.get("pca_components", 3))
+           if hyperparams.get("applyPCA") else 0)
+    scene1 = cache.get(img1, dtype, device, pca)
     scene2 = cache.get(img2, dtype, device)
 
     h, w = scene1.shape[:2]

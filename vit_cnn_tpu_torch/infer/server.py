@@ -14,8 +14,10 @@ Request fields (all optional):
   stride       test stride override (only 1 is ported)
   cmd          "quit" ends the loop
 
-Response: {"ok": true, "seconds": ..., "shape": [...], ...} or
-{"ok": false, "error": "..."}.
+Response: {"ok": true, "seconds": ..., "shape": [...], "uploads": n, ...}
+or {"ok": false, "error": "..."}; ``uploads`` counts the scenes this
+request put on the device (0: every scene was resident, a PCA model's
+reduced HSI included).
 """
 
 from __future__ import annotations
@@ -107,10 +109,12 @@ class SceneServer:
     def handle(self, req: Dict, default_img1: np.ndarray,
                default_img2: np.ndarray) -> Dict:
         t0 = time.time()
+        uploads = self.cache.uploads
         img1 = self._scene(req.get("hsi"), default_img1)
         img2 = self._scene(req.get("lidar"), default_img2)
         probs = self.serve(img1, img2, req.get("stride"))
-        resp: Dict = {"ok": True, "shape": list(probs.shape)}
+        resp: Dict = {"ok": True, "shape": list(probs.shape),
+                      "uploads": self.cache.uploads - uploads}
         if req.get("out"):
             np.save(req["out"], probs)
             resp["out"] = req["out"]

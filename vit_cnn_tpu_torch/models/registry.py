@@ -1,10 +1,12 @@
 """Model registry: name -> (constructor, default hyperparameters).
 
-Port of :mod:`vit_cnn_tpu.models.registry` for the models ported so far:
-the flagship and the transformer zoo (SpectralFormer, S2EFT, MHST,
-GLT_Net), each with its registry loss and optimizer.
+Port of :mod:`vit_cnn_tpu.models.registry`, every model of it: the
+flagship, the transformer zoo (SpectralFormer, S2EFT, MHST, GLT_Net) and
+the CNN zoo (EndNet, the four Hong fusion CNNs, FusAtNet, S2ENet, MFT,
+HCTnet), each with its registry loss, optimizer and PCA policy.
 ``get_model`` fills hyperparameters with the same setdefault semantics
-and returns (module, spec, filled hyperparameters); the module's
+and returns (module, spec, filled hyperparameters), the module built for
+``pca_components`` HSI bands where ``applyPCA`` is set; the module's
 parameters are empty until :func:`vit_cnn_tpu_torch.nn.layers.
 init_parameters` or ``load_state_dict`` fills them.
 """
@@ -32,6 +34,52 @@ class ModelSpec:
     pca_components: int = 3
     center_pixel: bool = True
     supervision: str = "full"
+
+
+def _build_endnet(hp):
+    from .endnet import EndNet
+
+    return EndNet(n_bands1=hp["n_bands"][0], n_bands2=hp["n_bands"][1],
+                  n_classes=hp["n_classes"])
+
+
+def _build_mdl_hong(kind):
+    def build(hp):
+        from . import mdl_hong
+
+        cls = getattr(mdl_hong, kind + "_fusion_CNN")
+        return cls(n_bands1=hp["n_bands"][0], n_bands2=hp["n_bands"][1],
+                   n_classes=hp["n_classes"])
+
+    return build
+
+
+def _build_fusatnet(hp):
+    from .fusatnet import FusAtNet
+
+    return FusAtNet(n_bands1=hp["n_bands"][0], n_bands2=hp["n_bands"][1],
+                    n_classes=hp["n_classes"])
+
+
+def _build_s2enet(hp):
+    from .s2enet import S2ENet
+
+    return S2ENet(n_bands1=hp["n_bands"][0], n_bands2=hp["n_bands"][1],
+                  n_classes=hp["n_classes"], patch_size=hp["patch_size"])
+
+
+def _build_mft(hp):
+    from .mft import MFT
+
+    return MFT(patch_size=hp["patch_size"], fm=16, n_bands1=hp["n_bands"][0],
+               n_bands2=hp["n_bands"][1], n_classes=hp["n_classes"])
+
+
+def _build_hctnet(hp):
+    from .hctnet import HCTnet
+
+    return HCTnet(n_bands1=hp["n_bands"][0], n_bands2=hp["n_bands"][1],
+                  n_classes=hp["n_classes"], num_tokens=6, heads=8)
 
 
 def _build_mm_mamba(hp):
@@ -85,6 +133,31 @@ def _build_glt(hp):
 
 # defaults cited from ref: model_utils.py (line ranges per entry)
 MODELS: Dict[str, ModelSpec] = {
+    "EndNet": ModelSpec("EndNet", _build_endnet, loss="endnet", patch_size=1,
+                        lr=1e-3, epochs=150),                       # :119-128
+    "Early_fusion_CNN": ModelSpec("Early_fusion_CNN",
+                                  _build_mdl_hong("Early"), patch_size=7,
+                                  lr=1e-3, epochs=150),             # :69-78
+    "Middle_fusion_CNN": ModelSpec("Middle_fusion_CNN",
+                                   _build_mdl_hong("Middle"), patch_size=7,
+                                   lr=1e-3, epochs=150),            # :79-88
+    "Late_fusion_CNN": ModelSpec("Late_fusion_CNN",
+                                 _build_mdl_hong("Late"), patch_size=7,
+                                 lr=1e-3, epochs=150),              # :89-98
+    "Cross_fusion_CNN": ModelSpec("Cross_fusion_CNN",
+                                  _build_mdl_hong("Cross"),
+                                  loss="cross_fusion", patch_size=7,
+                                  lr=1e-3, epochs=150),             # :99-108
+    "FusAtNet": ModelSpec("FusAtNet", _build_fusatnet, patch_size=11,
+                          lr=1e-3, epochs=150),                     # :109-118
+    "S2ENet": ModelSpec("S2ENet", _build_s2enet, patch_size=7, lr=1e-3,
+                        epochs=128),                                # :129-138
+    "MFT": ModelSpec("MFT", _build_mft, patch_size=11, lr=5e-4,
+                     optimizer="adam", weight_decay=5e-3,
+                     epochs=500),                                   # :364-376
+    "HCTnet": ModelSpec("HCTnet", _build_hctnet, patch_size=11, lr=1e-4,
+                        epochs=100, apply_pca=True,
+                        pca_components=30),                         # :351-363
     "SpectralFormer": ModelSpec("SpectralFormer", _build_spectralformer,
                                 patch_size=1, lr=5e-4,
                                 epochs=300),                        # :377-399
@@ -107,9 +180,7 @@ def model_names():
 
 def get_model(name: str, **kwargs):
     if name not in MODELS:
-        raise KeyError(
-            "{} is not ported to PyTorch yet (ported: {}); the CNN zoo "
-            "is ROADMAP Queue 1, 'CNN zoo'".format(name, model_names()))
+        raise KeyError("{} model is unknown.".format(name))
     spec = MODELS[name]
     kwargs.setdefault("patch_size", spec.patch_size)
     kwargs.setdefault("lr", spec.lr)
@@ -134,4 +205,9 @@ def get_model(name: str, **kwargs):
             if 0 <= label < n_classes:
                 weights[label] = 0.0
         kwargs["weights"] = weights
-    return spec.build(kwargs), spec, kwargs
+    # a PCA model is built for the reduced HSI, as the JAX CLI inits it at
+    # pca_components channels (vit_cnn_tpu/cli/__init__.py:219-222)
+    built = (dict(kwargs, n_bands=(int(kwargs["pca_components"]),
+                                   kwargs["n_bands"][1]))
+             if kwargs["applyPCA"] else kwargs)
+    return spec.build(built), spec, kwargs

@@ -11,7 +11,8 @@
 The first three build their models as ``chip_smoke.py`` does: at
 Houston2013 width on the Synthetic scene at 349 x 1905, with the seeded
 weights of ``convert.seeded_state_dict`` (:func:`model_state`);
-``profile_train`` takes ``--model`` (the flagship by default). The two
+``profile_train`` takes ``--model`` (the flagship by default), and
+``profile_serve`` model names (every registered model by default). The two
 sweeps time the scan's and head-last attention's variants
 (ops/scan_variants.py, ops/heads_variants.py) at the serving shapes and
 the probes' shapes against their bounds (:func:`bound`, with CUDA-event medians,
@@ -134,8 +135,8 @@ def load_scene(crop: Optional[Tuple[int, int]] = None):
 def train_step(scene, state, device, batch: int,
                model: str = "Multimodality_Mamba", bf16: bool = False,
                flip: bool = False, seed: int = 0):
-    """A Trainer of the registered ``model`` on ``device`` from ``state``,
-    and one batch of centers (the first of its seeded shuffle) with its
+    """A Trainer of the registered ``model`` on ``device`` from ``state``
+    (on the PCA of ``scene``'s HSI for a PCA model), and one batch of centers (the first of its seeded shuffle) with its
     ``valid`` mask and a zero loss sum: ``trainer._step(*args)`` runs one
     step (the zoo's dropout and Gumbel noise from ``trainer.noise``, the
     trainer's generator unless the caller sets another source)."""
@@ -143,12 +144,16 @@ def train_step(scene, state, device, batch: int,
     from ..pipeline.patches import AugmentConfig, PatchPipeline
     from ..train.loop import Trainer
 
+    from ..data.normalize import apply_pca
+
     img1, img2, gt = scene
     n_classes = int(SCENE["VCT_SYN_CLASSES"])
     net, _, hp = get_model(
         model, dataset="Synthetic", n_classes=n_classes,
         n_bands=(img1.shape[2], img2.shape[2]), ignored_labels=[0],
         batch_size=batch, epoch=1, bf16=bf16, flip_augmentation=flip)
+    if hp["applyPCA"]:                  # HCTnet trains on the scene's PCA
+        img1 = apply_pca(img1, hp["pca_components"])
     net.load_state_dict(state)
     net.to(device)
     pipe = PatchPipeline(img1, img2, gt, hp["patch_size"], [0], n_classes,

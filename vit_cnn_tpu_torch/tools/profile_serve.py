@@ -2,8 +2,8 @@
 
   python -m vit_cnn_tpu_torch.tools.profile_serve [MODEL ...]
 
-For each model (default: the flagship, MHST, SpectralFormer, S2EFT and
-GLT_Net), bf16 policy, ``--infer_chunk`` 8192: a band is what a request
+For each model (default: every registered model; a PCA model's scene is
+reduced once, while warming up), bf16 policy, ``--infer_chunk`` 8192: a band is what a request
 on the 349 x 1905 scene runs (4 origin rows of 1905 - P + 1 windows). The
 script serves the top rows of the scene that hold exactly ``BANDS`` such
 bands: once to warm up and upload the scene, once on the host clock
@@ -34,8 +34,6 @@ from .profile_train import _device_us, family
 
 BANDS = 4
 CHUNK = 8192
-MODELS = ("Multimodality_Mamba", "MHST", "SpectralFormer", "S2EFT",
-          "GLT_Net")
 
 
 def _serve_ms(model, img1, img2, hp, cache) -> float:
@@ -99,7 +97,9 @@ def main(argv=None) -> int:
         raise SystemExit("profile_serve: CUDA is not available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    names = (sys.argv[1:] if argv is None else argv) or MODELS
+    from ..models.registry import model_names
+
+    names = (sys.argv[1:] if argv is None else argv) or model_names()
     print(card_line(), flush=True)
     scene = load_scene()
     for name in names:

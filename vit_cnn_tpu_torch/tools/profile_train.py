@@ -2,8 +2,8 @@
 
   python -m vit_cnn_tpu_torch.tools.profile_train [--model MODEL]
 
-The flagship by default, or any registered model (the zoo: MHST,
-SpectralFormer, S2EFT, GLT_Net) with its seeded weights; bf16 over
+The flagship by default, or any registered model (the transformer and
+CNN zoos; HCTnet on the PCA of the HSI) with its seeded weights; bf16 over
 float32 master weights, batch 1024, flip/rotate on, one fixed batch, as
 ``chip_smoke.py``'s steady steps. After 3 warm-up steps it
 times 5 steps on the host clock without the profiler, then 5 steps under

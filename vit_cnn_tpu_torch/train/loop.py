@@ -89,10 +89,14 @@ class Trainer:
         self.best_checkpoint: Optional[str] = None
         self.final_checkpoint: Optional[str] = None
         loss = hyperparams.get("loss", "cross_entropy")
-        if loss not in LOSSES:
+        if loss not in LOSSES or loss == "focal":
+            # focal_loss takes (logits, targets, gamma, alpha, ...), not the
+            # (output, labels, class_weights, valid) of a step: the JAX
+            # Trainer would pass the class weights as gamma
             raise NotImplementedError(
-                "loss {!r} is not ported yet: it comes with its model "
-                "(ROADMAP Queue 1)".format(loss))
+                "loss {!r}: the Trainer takes {} (focal: ROADMAP Queue 1, "
+                "'Not ported yet')"
+                .format(loss, sorted(set(LOSSES) - {"focal"})))
         self.model = model
         self.pipeline = pipeline
         self.val_pipeline = val_pipeline
