@@ -92,6 +92,27 @@ the result lines:
    exactly. No hand-written kernel lies on this path (the JAX CNN models
    reach no Pallas kernel): every K1-K9 count stays 0.
 
+11. run_modes — run after the CNN zoo: the port's remaining run modes.
+   The flagship through ``--serve`` with ``{"stride": 3}`` requests (bf16;
+   seconds and windows/s, mass only at window centers, K1-K4 launched),
+   and the 12 x 64 crop at stride 2 (origin rows 0, 2, 3; 87 windows and
+   9 padding origins in one chunk of 96, so the padding shares the
+   scatter with (0, 0)) on the card in
+   float32 against the CPU within CROP_TOL. ``run_train`` with flip,
+   radiation and mixture augmentation (bf16, batch 1024, 2 epochs, maps at
+   stride 3; K1-K7 launched, the adjoints once per step and use site),
+   steady steps with and without the two noises in turns (ms/step each),
+   and the noise gates over 20 draws of 1024 within 4 sigma of 0.1 and
+   0.2. ``--pretrain --cos`` with both noises through the CLI on a
+   49 x 169 scene (2 epochs at batch 64, queue 2048; the best file read
+   back bit for bit), steady pretraining steps on the full scene at batch
+   64 and 1024 (ms/step, patches/s, peak memory), and one float32
+   pretraining step on the card against the CPU's from the same weights,
+   views and queue (phase 6's limits); K1-K9 launched 0 times in
+   pretraining. ``--debug_nans``: the clean bf16 step's cost with and
+   without the checks, and a poisoned parameter raising
+   ``FloatingPointError`` naming a module.
+
 Phase 2 also holds K8 and K9 (float32 and bf16, at every zoo band shape,
 a ragged batch, one token, 17 tokens, odd hd and the 512-token limit) and
 times both dtypes beside their plain versions,
@@ -100,7 +121,8 @@ for K9, the composition of the plain group LayerNorm with K8.
 
 Then one JSON line with the kernel table (time, plain time, bound and what
 bounds it, library time, launches per path: serve, train, runloop,
-serve_zoo, train_zoo, cnn_zoo and sweep), and as the last line
+serve_zoo, train_zoo, cnn_zoo, serve_stride, train_aug and sweep), and as
+the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -186,6 +208,20 @@ CNN_ZOO = ("EndNet", "Early_fusion_CNN", "Middle_fusion_CNN",
            "MFT", "HCTnet")
 CNN_HANDOFF = "HCTnet"
 PATH_KERNELS = FORWARD + ADJOINTS + HEADS
+# phase run_modes: the flagship served at stride 3 (and the 12 x 64 crop at
+# stride 2: origin rows 0, 2, 3, the last clamped; its 87 windows and 9
+# padding origins in one chunk of 96), its
+# run_train with both noises (maps at stride 3), steady steps with and
+# without them in turns, the noise gates over GATE_BATCHES draws; MoCo
+# pretraining through the CLI on a scene of 40 x 160 interior centers (~100
+# steps an epoch at batch 64), steady pretraining steps on the full scene,
+# the card-vs-CPU pretraining step; --debug_nans clean and poisoned
+STRIDE, STRIDE_CROP, STRIDE_CROP_CHUNK = 3, 2, 96
+AUG_EPOCHS, NOISE_STEPS, GATE_BATCHES = 2, 10, 20
+PRETRAIN_SCENE = {"VCT_SYN_H": "49", "VCT_SYN_W": "169"}
+PRETRAIN_EPOCHS, PRETRAIN_QUEUE, PRETRAIN_STEADY = 2, 2048, 20
+PRETRAIN_BATCHES = (64, 1024)
+NAN_STEPS = 5
 # phase 9: the sweep tools' variant kernels (rows 10-13 of the table);
 # their cases at fewer repetitions, plus a ragged batch and one token
 VARIANTS = ("selective_scan_tiled", "selective_scan_batch_major",
@@ -1984,6 +2020,465 @@ def phase_cnn_zoo(tmp, card):
     return serve_counts, {name: train_counts}, figures
 
 
+def _stride_serve(tmp, state, card, scene):
+    """The flagship through --serve with two stride-3 requests (bf16):
+    seconds and windows/s each, the map finite with mass only at window
+    centers, K1-K4 launched. Returns (launches, figures)."""
+    import numpy as np
+
+    from vit_cnn_tpu_torch.cli import build_parser, run_serve
+    from vit_cnn_tpu_torch.infer.fullscene import sliding_window_origins
+    from vit_cnn_tpu_torch.ops import _build
+
+    h, w = scene[0].shape[:2]
+    origins = sliding_window_origins(h, w, 9, STRIDE)
+    out = os.path.join(tmp, "stride.npy")
+    requests = [{"stride": STRIDE, "out": out}, {"stride": STRIDE},
+                {"cmd": "quit"}]
+    args = build_parser().parse_args([
+        "--dataset", "Synthetic", "--folder", tmp, "--model",
+        "Multimodality_Mamba", "--bf16", "--serve", "--seed", str(SEED)])
+    in_s = io.StringIO("\n".join(json.dumps(r) for r in requests) + "\n")
+    out_s = io.StringIO()
+    _build.launches.clear()
+    served = run_serve(args, in_stream=in_s, out_stream=out_s,
+                       state_dict=state)
+    counts = dict(_build.launches)
+    resps = [json.loads(l) for l in out_s.getvalue().splitlines() if l]
+    if served != 2 or not all(r.get("ok") for r in resps):
+        raise Failed("stride serving did not answer 2 requests: {}".format(
+            resps))
+    figures = {"windows": len(origins),
+               "request_s": [r["seconds"] for r in resps],
+               "windows_per_s": [len(origins) / r["seconds"] for r in resps]}
+    probs = np.load(out)
+    centers = np.zeros((h, w), bool)
+    centers[origins[:, 0] + 4, origins[:, 1] + 4] = True
+    finite = bool(np.isfinite(probs).all())
+    outside = bool(probs[~centers].any())
+    print("[run_modes] stride {} serve ({}): {} windows; warm {:.3f} s "
+          "({:.0f} windows/s), resident {:.3f} s ({:.0f} windows/s); map {} "
+          "finite={} mass outside the centers={}; launches {}".format(
+              STRIDE, card, len(origins), figures["request_s"][0],
+              figures["windows_per_s"][0], figures["request_s"][1],
+              figures["windows_per_s"][1], probs.shape, finite, outside,
+              json.dumps(counts)), flush=True)
+    missing = [k for k in FORWARD if counts.get(k, 0) <= 0]
+    if probs.shape[:2] != (h, w) or not finite or outside or \
+            not (np.abs(probs[centers]).sum(-1) > 0).all() or missing:
+        raise Failed("stride serving: bad map or kernels never launched "
+                     "{}".format(missing))
+    return counts, figures
+
+
+def _stride_crop(state, scene):
+    """The 12 x 64 crop at stride 2 (origin rows 0, 2, 3, one chunk) on
+    the card in float32 against the CPU's plain versions."""
+    import numpy as np
+
+    from vit_cnn_tpu_torch.infer.fullscene import (full_scene_probabilities,
+                                                   sliding_window_origins)
+    from vit_cnn_tpu_torch.models.registry import get_model
+
+    img1, img2 = (x[:12, :64] for x in scene[:2])
+    n_classes = int(SCENE["VCT_SYN_CLASSES"])
+    origins = sliding_window_origins(12, 64, 9, STRIDE_CROP)
+    rows = sorted(set(origins[:, 0]))
+
+    def serve(device):
+        model, _, hp = get_model("Multimodality_Mamba", n_classes=n_classes,
+                                 n_bands=(img1.shape[2], img2.shape[2]))
+        model.load_state_dict(state)
+        model.to(device).eval()
+        return full_scene_probabilities(
+            model, img1, img2, dict(hp, test_stride=STRIDE_CROP),
+            chunk=STRIDE_CROP_CHUNK)
+
+    cpu, f32 = serve("cpu"), serve("cuda")
+    scale = max(1.0, float(np.abs(cpu).max()))
+    d32 = float(np.abs(f32 - cpu).max())
+    print("[run_modes] crop at stride {} (origin rows {}; {} windows in one "
+          "chunk of {}): card f32 vs cpu f32 max|diff| {:.3e} (limit {:.1e}); "
+          "mass at (4, 4) {:.4f}".format(
+              STRIDE_CROP, [int(r) for r in rows], len(origins),
+              STRIDE_CROP_CHUNK, d32, CROP_TOL * scale,
+              float(np.abs(f32[4, 4]).sum())), flush=True)
+    if rows != [0, 2, 3] or len(origins) >= STRIDE_CROP_CHUNK or \
+            d32 > CROP_TOL * scale or not f32[4, 4].any():
+        raise Failed("the stride-2 crop disagrees with the CPU plain path")
+
+
+def _timed_steps(trainer, step_args, steps):
+    """ms per step of ``steps`` steps after one untimed step, and the
+    losses."""
+    import torch
+
+    losses = [trainer._step(*step_args)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [trainer._step(*step_args) for _ in range(steps)]
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / steps, \
+        [float(x) for x in losses]
+
+
+def _aug_train(tmp, state, card, scene):
+    """run_train of the flagship with flip, radiation and mixture (bf16,
+    batch 1024), steady steps with and without the noises in turns, and
+    the gate rates. Returns (run_train's launches, figures)."""
+    import numpy as np
+    import torch
+
+    from vit_cnn_tpu_torch.cli import build_parser, run_train
+    from vit_cnn_tpu_torch.ops import _build
+    from vit_cnn_tpu_torch.pipeline.patches import MIXTURE_P, RADIATION_P
+    from vit_cnn_tpu_torch.tools import median_ms, train_step
+
+    args = build_parser().parse_args([
+        "--dataset", "Synthetic", "--folder", tmp, "--model",
+        "Multimodality_Mamba", "--bf16", "--batch_size", str(TRAIN_BATCH),
+        "--flip_augmentation", "--radiation_augmentation",
+        "--mixture_augmentation", "--epoch", str(AUG_EPOCHS),
+        "--training_sample", "200", "--test_stride", str(STRIDE),
+        "--log_every", "1", "--seed", str(SEED)])
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    result = run_train(args, state_dict=state)
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    print("[run_modes] augmented run_train {:.1f} s ({}): {} centers, epoch "
+          "losses {}, val {}, OA {:.2f}".format(
+              wall, card, result["train_samples"], result["losses"],
+              result["val_accuracies"], result["OA"]), flush=True)
+    if not all(np.isfinite(result["losses"])):
+        raise Failed("non-finite loss in augmented training")
+    _check_counts(counts, -(-result["train_samples"] // TRAIN_BATCH)
+                  * result["epochs"], "run_modes aug")
+
+    trainers = {noise: train_step(scene, state, "cuda", TRAIN_BATCH,
+                                  bf16=True, flip=True, seed=SEED,
+                                  radiation=noise, mixture=noise)
+                for noise in (False, True)}
+    ms = {False: [], True: []}
+    for noise in (False, True, True, False):
+        t, losses = _timed_steps(*trainers[noise], NOISE_STEPS)
+        if not all(np.isfinite(losses)):
+            raise Failed("non-finite loss in the steady augmented steps")
+        ms[noise].append(t)
+    figures = {"ms_per_step_flip": ms[False], "ms_per_step_noises": ms[True]}
+    print("[run_modes] steady bf16 steps of {} ({}), in turns off on on off: "
+          "flip only {} ms/step, flip + radiation + mixture {} ms/step; the "
+          "noises cost {:.2f} ms/step".format(
+              TRAIN_BATCH, card, " ".join("{:.2f}".format(x) for x in
+                                          ms[False]),
+              " ".join("{:.2f}".format(x) for x in ms[True]),
+              np.mean(ms[True]) - np.mean(ms[False])), flush=True)
+
+    # the batch assembly alone (gather, flip, noises), CUDA events
+    batch_ms = {noise: median_ms(functools.partial(
+        trainers[noise][0].pipeline.make_batch, trainers[noise][0].generator,
+        trainers[noise][1][0])) for noise in (False, True)}
+    figures.update(batch_ms_flip=batch_ms[False],
+                   batch_ms_noises=batch_ms[True])
+    print("[run_modes] batch assembly of {} ({}): flip only {:.3f} ms, flip "
+          "+ radiation + mixture {:.3f} ms".format(
+              TRAIN_BATCH, card, batch_ms[False], batch_ms[True]), flush=True)
+
+    pipe = trainers[True][0].pipeline
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    fired = {"radiation_gate": 0, "mixture_gate": 0}
+    for _ in range(GATE_BATCHES):
+        draws = pipe.draw_noise(g, (TRAIN_BATCH, 9, 9, scene[0].shape[2]))
+        fired["radiation_gate"] += int((draws["radiation_gate"]
+                                        < RADIATION_P).sum())
+        fired["mixture_gate"] += int((draws["mixture_gate"]
+                                      < MIXTURE_P).sum())
+    n = GATE_BATCHES * TRAIN_BATCH
+    for name, p in (("radiation_gate", RADIATION_P),
+                    ("mixture_gate", MIXTURE_P)):
+        rate, sigma = fired[name] / n, (p * (1 - p) / n) ** 0.5
+        figures[name + "_rate"] = rate
+        print("[run_modes] {} rate {:.4f} over {} samples (p {}, {:.2f} "
+              "sigma)".format(name, rate, n, p, (rate - p) / sigma),
+              flush=True)
+        if abs(rate - p) > 4 * sigma:
+            raise Failed("{} fires at {:.4f}, not {}".format(name, rate, p))
+    return counts, figures
+
+
+def _pretrain_cli(tmp, card):
+    """--pretrain --cos with both noises through the CLI on a 49 x 169
+    scene; the best file read back bit for bit. Returns its launches."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vit_cnn_tpu_torch import cli
+    from vit_cnn_tpu_torch.models.moco import DualModalEncoder
+    from vit_cnn_tpu_torch.ops import _build
+    from vit_cnn_tpu_torch.train.checkpoint import restore_state_dict
+
+    best = []
+
+    class Capture(cli.Pretrainer):
+        def fit(self, *a, **kw):
+            best.append(super().fit(*a, **kw))
+            return best[-1]
+
+    work = os.path.join(tmp, "pretrain")
+    os.makedirs(work)
+    saved = {k: os.environ[k] for k in PRETRAIN_SCENE}
+    cwd, real = os.getcwd(), cli.Pretrainer
+    stdout = io.StringIO()
+    try:
+        os.environ.update(PRETRAIN_SCENE)
+        os.chdir(work)
+        cli.Pretrainer = Capture
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            result = cli.main([
+                "--dataset", "Synthetic", "--folder", tmp, "--pretrain",
+                "--cos", "--radiation_augmentation", "--mixture_augmentation",
+                "--epoch", str(PRETRAIN_EPOCHS), "--batch_size", "64",
+                "--queue_size", str(PRETRAIN_QUEUE), "--log_every", "1",
+                "--seed", str(SEED)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launches)
+    finally:
+        os.environ.update(saved)
+        os.chdir(cwd)
+        cli.Pretrainer = real
+    steps = -(-result["centers"] // 64) * PRETRAIN_EPOCHS
+    print("[run_modes] --pretrain ({}): {} centers, {} steps of 64 in {:.1f} "
+          "s ({:.2f} ms/step with the epochs' set-up), queue {}, epoch losses "
+          "{}".format(card, result["centers"], steps, wall,
+                      1e3 * wall / steps, result["queue_size"],
+                      result["losses"]), flush=True)
+    encoder = DualModalEncoder(int(SCENE["VCT_SYN_BANDS"]), 1)
+    restored = restore_state_dict(os.path.join(work,
+                                               result["best_checkpoint"]),
+                                  encoder)
+    same = set(restored) == set(best[-1]) and all(
+        torch.equal(restored[k], best[-1][k]) for k in restored)
+    print("[run_modes] best file {}: read back {}".format(
+        os.path.basename(result["best_checkpoint"]),
+        "bit for bit" if same else "DIFFERENT"), flush=True)
+    if not all(np.isfinite(result["losses"])) or not same:
+        raise Failed("pretraining gave a non-finite loss or its best file "
+                     "does not read back")
+    return counts
+
+
+def _pretrain_steady(card, scene):
+    """Steady pretraining steps on one batch of the full scene at each of
+    PRETRAIN_BATCHES: ms/step, patches/s, peak memory. Returns
+    (launches, figures)."""
+    import numpy as np
+    import torch
+
+    from vit_cnn_tpu_torch.models.moco import DualModalEncoder
+    from vit_cnn_tpu_torch.nn.layers import init_parameters
+    from vit_cnn_tpu_torch.ops import _build
+    from vit_cnn_tpu_torch.pipeline.patches import AugmentConfig
+    from vit_cnn_tpu_torch.pipeline.twoview import TwoViewPipeline
+    from vit_cnn_tpu_torch.train.pretrain import Pretrainer
+
+    img1, img2, gt = scene
+    pipe = TwoViewPipeline(img1, img2, gt, 9, [0], int(
+        SCENE["VCT_SYN_CLASSES"]), augment=AugmentConfig(flip=True),
+        device="cuda")
+    figures, counts = {}, {}
+    for batch in PRETRAIN_BATCHES:
+        encoder = init_parameters(DualModalEncoder(img1.shape[2], 1), SEED)
+        pre = Pretrainer(encoder.cuda(), {"batch_size": batch, "epoch": 1,
+                                          "lr": 5e-4}, pipe,
+                         queue_size=PRETRAIN_QUEUE, seed=SEED,
+                         save_checkpoints=False)
+        centers = torch.as_tensor(pipe.epoch_order(
+            np.random.RandomState(SEED))[:batch], device="cuda")
+        args = (centers, torch.ones(batch, device="cuda"),
+                torch.zeros((), device="cuda"), 5e-4)
+        pre._step(*args)                                  # not timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        loss_sum = args[2]
+        for _ in range(PRETRAIN_STEADY):
+            loss_sum = pre._step(centers, args[1], loss_sum, args[3])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts.update(_build.launches)
+        f = figures[batch] = {
+            "ms_per_step": 1e3 * secs / PRETRAIN_STEADY,
+            "patches_per_s": PRETRAIN_STEADY * batch / secs,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print("[run_modes] steady pretraining steps ({}): {} of {} on the "
+              "{} centers of the full scene: {:.2f} ms/step, {:.0f} "
+              "patches/s, peak device memory {:.2f} GB; mean loss {:.4f}"
+              .format(card, PRETRAIN_STEADY, batch, len(pipe),
+                      f["ms_per_step"], f["patches_per_s"], f["peak_gb"],
+                      float(loss_sum) / PRETRAIN_STEADY), flush=True)
+        if not np.isfinite(float(loss_sum)):
+            raise Failed("non-finite loss in the steady pretraining steps")
+    return counts, figures
+
+
+def _pretrain_crop(scene):
+    """One float32 pretraining step (batch 64) on the card and on the CPU
+    from the same weights, views, key variables and queue: the loss,
+    every gradient (phase 6's limits), the new key variables and queue."""
+    import numpy as np
+    import torch
+
+    from vit_cnn_tpu_torch.models.moco import DualModalEncoder, MoCoState
+    from vit_cnn_tpu_torch.nn.layers import init_parameters
+    from vit_cnn_tpu_torch.pipeline.patches import AugmentConfig
+    from vit_cnn_tpu_torch.pipeline.twoview import TwoViewPipeline
+    from vit_cnn_tpu_torch.train.pretrain import Pretrainer
+
+    img1, img2, gt = (x[:40, :200] for x in scene)
+    bands, batch = img1.shape[2], 64
+    online = init_parameters(DualModalEncoder(bands, 1), SEED).state_dict()
+    key = init_parameters(DualModalEncoder(bands, 1), SEED + 1).state_dict()
+    pipe = TwoViewPipeline(img1, img2, gt, 9, [0], 15, augment=AugmentConfig(
+        flip=True, radiation=True, mixture=True))
+    centers = torch.as_tensor(pipe.indices[:batch])
+    views = pipe.make_views(torch.Generator().manual_seed(SEED), centers)[:4]
+    g = torch.Generator().manual_seed(SEED)
+    queue = torch.randn((PRETRAIN_QUEUE, 128), generator=g)
+    queue = queue / queue.norm(dim=1, keepdim=True)
+    valid = torch.ones(batch)
+    valid[-3:] = 0.0
+
+    def one(device):
+        encoder = DualModalEncoder(bands, 1)
+        encoder.load_state_dict(online)
+        encoder.to(device)
+        pre = Pretrainer(encoder, {"batch_size": batch, "epoch": 1,
+                                   "lr": 5e-4},
+                         TwoViewPipeline(img1, img2, gt, 9, [0], 15,
+                                         device=device),
+                         queue_size=PRETRAIN_QUEUE, seed=SEED,
+                         save_checkpoints=False)
+        pre.moco = MoCoState({k: v.to(device) for k, v in key.items()},
+                             queue.to(device), PRETRAIN_QUEUE - batch)
+        loss = pre.loss([v.to(device) for v in views], valid.to(device))
+        pre.optimizer.zero_grad()
+        loss.backward()
+        grads = {k: p.grad.cpu() for k, p in encoder.named_parameters()}
+        pre.optimizer.step()
+        state = {"queue": pre.moco.queue.cpu(), **{
+            "key." + k: v.cpu() for k, v in pre.moco.key_variables.items()},
+            **{"param." + k: v.detach().cpu()
+               for k, v in encoder.named_parameters()}}
+        return float(loss.detach()), grads, state, pre.moco.queue_ptr
+
+    loss_cpu, g_cpu, s_cpu, ptr_cpu = one("cpu")
+    loss_gpu, g_gpu, s_gpu, ptr_gpu = one("cuda")
+    floor = GRAD_ATOL * max(float(x.norm()) for x in g_cpu.values())
+    worst_g = max((float((g_gpu[k] - x).norm()) / (GRAD_TOL * float(x.norm())
+                                                  + floor), k)
+                  for k, x in g_cpu.items())
+    worst_s = max((float((s_gpu[k] - v).abs().max())
+                   / (STAT_TOL * max(float(v.abs().max()), 1e-30)), k)
+                  for k, v in s_cpu.items() if not k.startswith("param."))
+    dl = abs(loss_gpu - loss_cpu)
+    print("[run_modes] pretraining step, card f32 vs cpu f32: loss {:.6f} / "
+          "{:.6f} |diff| {:.2e}; {} gradients: worst ||diff|| {:.3f} of its "
+          "limit ({}); queue and {} key variables: worst max|diff| {:.3f} of "
+          "its limit ({}; limit {:g} x max|cpu|); pointer {} / {}".format(
+              loss_gpu, loss_cpu, dl, len(g_cpu), worst_g[0], worst_g[1],
+              len(s_cpu) - len(g_cpu) - 1, worst_s[0], worst_s[1], STAT_TOL,
+              ptr_gpu, ptr_cpu), flush=True)
+    if dl > 1e-3 * abs(loss_cpu) or worst_g[0] > 1.0 or worst_s[0] > 1.0 \
+            or ptr_gpu != ptr_cpu or not np.isfinite(loss_gpu):
+        raise Failed("the card's pretraining step disagrees with the CPU's")
+
+
+def _debug_nans(state, card, scene):
+    """The clean bf16 flagship step with and without --debug_nans' checks
+    in turns, then a NaN parameter: FloatingPointError naming a module.
+    Returns figures."""
+    import numpy as np
+    import torch
+
+    from vit_cnn_tpu_torch.tools import train_step
+
+    trainers = {flag: train_step(scene, state, "cuda", TRAIN_BATCH,
+                                 bf16=True, flip=True, seed=SEED,
+                                 debug_nans=flag) for flag in (False, True)}
+    ms = {False: [], True: []}
+    for flag in (False, True, True, False):
+        t, losses = _timed_steps(*trainers[flag], NAN_STEPS)
+        ms[flag].append(t)
+    trainer, step_args = trainers[True]
+    name, param = next(iter(trainer.model.named_parameters()))
+    with torch.no_grad():
+        param.view(-1)[0] = float("nan")
+    try:
+        trainer._step(*step_args)
+        torch.cuda.synchronize()
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    print("[run_modes] --debug_nans ({}): clean bf16 steps of {} without "
+          "the checks {} ms/step, with them {} ms/step; {} poisoned: {}"
+          .format(card, TRAIN_BATCH, " ".join("{:.2f}".format(x)
+                                              for x in ms[False]),
+                  " ".join("{:.2f}".format(x) for x in ms[True]), name,
+                  "FloatingPointError: " + raised if raised else
+                  "NOTHING RAISED"), flush=True)
+    if not raised or "output of" not in raised:
+        raise Failed("--debug_nans did not stop the poisoned step at a "
+                     "module")
+    return {"ms_per_step_off": ms[False], "ms_per_step_on": ms[True],
+            "raised": raised}
+
+
+def phase_run_modes(tmp, state, card):
+    """The port's remaining run modes on the card: stride > 1 serving,
+    augmented training, MoCo pretraining and --debug_nans. Returns (the
+    stride serving's launches, the augmented run_train's, the figures)."""
+    from vit_cnn_tpu_torch.data import get_dataset
+
+    t0 = time.perf_counter()
+    marks = []
+
+    def mark(what):
+        marks.append("{} {:.1f} s".format(what, time.perf_counter() - t0))
+
+    scene = get_dataset("Synthetic", tmp)[:3]
+    figures = {}
+    serve_counts, figures["serve_stride"] = _stride_serve(tmp, state, card,
+                                                          scene)
+    mark("stride serving")
+    _stride_crop(state, scene)
+    mark("stride crop")
+    train_counts, figures["train_aug"] = _aug_train(tmp, state, card, scene)
+    mark("augmented training")
+    pre_counts = _pretrain_cli(tmp, card)
+    mark("pretraining CLI")
+    steady_counts, figures["pretrain"] = _pretrain_steady(card, scene)
+    mark("pretraining steady")
+    _pretrain_crop(scene)
+    mark("pretraining crop")
+    launched = {k: pre_counts.get(k, 0) + steady_counts.get(k, 0)
+                for k in PATH_KERNELS}
+    print("[run_modes] K1-K9 launches in pretraining: {}".format(
+        json.dumps(launched)), flush=True)
+    if any(launched.values()):
+        raise Failed("pretraining launched kernels: {}".format(launched))
+    figures["debug_nans"] = _debug_nans(state, card, scene)
+    mark("debug_nans")
+    print("[run_modes] phase {:.1f} s (cumulative: {})".format(
+        time.perf_counter() - t0, "; ".join(marks)), flush=True)
+    return serve_counts, train_counts, figures
+
+
 def main():
     import torch
 
@@ -2022,6 +2517,8 @@ def main():
                                                                card)
                 cnn_serve_counts, cnn_train_counts, cnn_figures = \
                     phase_cnn_zoo(tmp, card)
+                stride_counts, aug_counts, mode_figures = \
+                    phase_run_modes(tmp, state, card)
             finally:
                 os.chdir(here)
     except Failed as e:
@@ -2072,7 +2569,7 @@ def main():
     # launches: the flagship forward kernels' count from its serving run,
     # the adjoints' from the training run, K8 and K9 from the zoo's
     # serving runs, the variants' from the sweep (each run's counts were
-    # set to 0 just before it); launches_by_path has all five paths
+    # set to 0 just before it); launches_by_path has every path
     zoo = {k: sum(c.get(k, 0) for c in zoo_counts.values())
            for k in sources}
     zoo_train = {k: sum(c.get(k, 0) for c in zoo_train_counts.values())
@@ -2081,7 +2578,9 @@ def main():
                   + list(cnn_train_counts.values())) for k in sources}
     paths = {"serve": counts, "train": train_counts,
              "runloop": runloop_counts, "serve_zoo": zoo,
-             "train_zoo": zoo_train, "cnn_zoo": cnn, "sweep": sweep_counts}
+             "train_zoo": zoo_train, "cnn_zoo": cnn,
+             "serve_stride": stride_counts, "train_aug": aug_counts,
+             "sweep": sweep_counts}
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
                   launches=paths["train" if name in ADJOINTS else
                                  "serve_zoo" if name in HEADS else
@@ -2095,6 +2594,7 @@ def main():
     print("[train] {}".format(json.dumps(steady)), flush=True)
     print("[zoo_train] {}".format(json.dumps(zoo_steady)), flush=True)
     print("[cnn_zoo] {}".format(json.dumps(cnn_figures)), flush=True)
+    print("[run_modes] {}".format(json.dumps(mode_figures)), flush=True)
     print(card, flush=True)                  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -102,15 +102,14 @@ def test_server_answers_out_pred_gt_and_keeps_the_scene(scene, tmp_path):
     np.save(tmp_path / "gt.npy", gt)
     reqs = [{"out": str(tmp_path / "p.npy")}, {},
             {"pred": str(tmp_path / "l.npy"), "gt": str(tmp_path / "gt.npy")},
-            {"stride": 2}, {"cmd": "quit"}, {}]
+            {"stride": 0}, {"cmd": "quit"}, {}]
     out = io.StringIO()
     served = server.loop(io.StringIO("\n".join(map(json.dumps, reqs))
                                      + "\n{bad json\n"), out, img1, img2)
     resps = [json.loads(l) for l in out.getvalue().splitlines()]
     assert served == 3 and len(resps) == 4
     assert all(r["ok"] for r in resps[:3])
-    assert resps[3]["ok"] is False and "NotImplementedError" in \
-        resps[3]["error"]
+    assert resps[3]["ok"] is False and "ValueError" in resps[3]["error"]
     probs = np.load(tmp_path / "p.npy")
     assert list(probs.shape) == resps[0]["shape"] == [H, W, K]
     np.testing.assert_array_equal(np.load(tmp_path / "l.npy"),

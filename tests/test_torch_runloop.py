@@ -183,8 +183,7 @@ def test_run_experiments_is_the_jax_run_loop(scene_env, tmp_path,
 
 def test_run_experiments_refuses_what_is_not_ported(scene_env):
     for flags, err, match in (
-            (["--test_stride", "2"], NotImplementedError, "Queue 1 #1"),
-            (["--device", "cuda"], RuntimeError, "CUDA is not available")):
+            (["--device", "cuda"], RuntimeError, "CUDA is not available"),):
         if flags[0] == "--device" and torch.cuda.is_available():
             continue
         args = cli.build_parser().parse_args(

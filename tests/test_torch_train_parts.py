@@ -346,10 +346,6 @@ def test_bf16_train_step_keeps_float32_parameters():
 
 def test_unported_training_options_raise():
     img1, img2, gt = _scene(9)
-    for aug in (patches.AugmentConfig(radiation=True),
-                patches.AugmentConfig(mixture=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            patches.PatchPipeline(img1, img2, gt, 5, [0], 4, augment=aug)
     with pytest.raises(ValueError, match="not implemented"):
         sample_gt(gt, 0.5, mode="spatial")
     model = MultimodalityMamba(5, 5, 1, 32, 4)

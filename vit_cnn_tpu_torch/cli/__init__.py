@@ -1,5 +1,5 @@
-"""Command line of the port: the run loop of experiments, or the
-``--serve`` daemon.
+"""Command line of the port: the run loop of experiments, the
+``--serve`` daemon, or MoCo pretraining (``--pretrain``).
 
 Port of :mod:`vit_cnn_tpu.cli`, with its flags under the same names,
 types and defaults (those left out are listed in :data:`LEFT_OUT`). Run
@@ -11,6 +11,8 @@ as::
       --runs 1 --epoch 2 --batch_size 1024    # train a zoo model
   python -m vit_cnn_tpu_torch --dataset Synthetic --bf16 --serve \\
       --restore checkpoints/.../best_epoch/<file>.msgpack   # serve
+  python -m vit_cnn_tpu_torch --dataset Synthetic --pretrain --cos \\
+      --radiation_augmentation --mixture_augmentation       # pretrain
 
 Without ``--serve``, :func:`run_experiments` is the JAX run loop
 (ref: main.py:377-552): for each of ``--runs`` runs a seeded split,
@@ -22,7 +24,8 @@ artifacts (PNG maps, the confusion matrix, the scalar stream) and the
 report under ``<out_dir>/<dataset>_<model>/``; then the aggregated report
 (mean ± std). stdout carries only JSON: one line a run, and with
 ``--runs`` > 1 an aggregated line. Status lines and the text reports go
-to stderr; the reports also go to ``report.txt``.
+to stderr; the reports also go to ``report.txt``. ``--pretrain`` is
+dispatched before ``--serve``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,21 +47,22 @@ from ..infer.fullscene import full_scene_probabilities
 from ..infer.server import SceneServer
 from ..metrics import metrics
 from ..metrics.report import show_results
+from ..models.moco import DualModalEncoder
 from ..models.registry import get_model, model_names
 from ..nn.layers import init_parameters
 from ..pipeline.patches import AugmentConfig, PatchPipeline
+from ..pipeline.twoview import TwoViewPipeline
 from ..train.checkpoint import restore_state_dict
 from ..train.loop import Trainer
-from ..utils import profiling
+from ..train.pretrain import Pretrainer
+from ..utils import nancheck, profiling
 from ..utils.palette import build_palette, convert_to_color
 from ..utils.seeding import seed_everything
 from ..utils.viz import ArtifactWriter
 
-#: flags of the JAX command line the port does not take yet (ROADMAP
-#: Queue 1; --download is not to port)
-LEFT_OUT = ("radiation_augmentation", "mixture_augmentation",
-            "download", "n_devices", "no_mesh", "debug_nans", "pretrain",
-            "cos", "queue_size", "moco_momentum", "moco_temperature")
+#: flags of the JAX command line the port does not take: the mesh
+#: (ROADMAP Queue 1) and --download, which is not to port
+LEFT_OUT = ("download", "n_devices", "no_mesh")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -120,10 +124,13 @@ def build_parser() -> argparse.ArgumentParser:
     group_train.add_argument("--batch_size", type=int, default=None,
                              help="Batch size (model default if absent)")
     group_train.add_argument("--test_stride", type=int, default=1,
-                             help="Sliding window stride during inference "
-                                  "(only 1 is ported)")
+                             help="Sliding window stride during inference")
     group_train.add_argument("--flip_augmentation", action="store_true",
                              help="Random flips (if patch_size > 1)")
+    group_train.add_argument("--radiation_augmentation", action="store_true",
+                             help="Random radiation noise (illumination)")
+    group_train.add_argument("--mixture_augmentation", action="store_true",
+                             help="Random mixes between spectra")
     group_train.add_argument("--log_every", type=int, default=10,
                              help="Print loss/val every N epochs (0 = silent)")
     parser.add_argument("--with_exploration", action="store_true",
@@ -150,6 +157,23 @@ def build_parser() -> argparse.ArgumentParser:
     group_run.add_argument("--device", type=str, default="cuda",
                            help="torch device; 'cuda' raises when CUDA is "
                                 "absent (the CPU runs only on --device cpu)")
+    group_run.add_argument("--debug_nans", action="store_true",
+                           help="Stop training at the first NaN in a "
+                                "module's output, a gradient or a parameter "
+                                "(FloatingPointError; each check waits for "
+                                "the device)")
+    group_pre = parser.add_argument_group("Contrastive pretraining")
+    group_pre.add_argument("--pretrain", action="store_true",
+                           help="Run MoCo contrastive pretraining over all "
+                                "interior pixels instead of supervised "
+                                "training (ref: model_utils.py:682-851)")
+    group_pre.add_argument("--cos", action="store_true",
+                           help="Cosine lr schedule during pretraining "
+                                "(ref: utils.py:21-30)")
+    group_pre.add_argument("--queue_size", type=int, default=2048,
+                           help="MoCo negative queue size")
+    group_pre.add_argument("--moco_momentum", type=float, default=0.999)
+    group_pre.add_argument("--moco_temperature", type=float, default=0.07)
     return parser
 
 
@@ -162,13 +186,6 @@ def _device(name: str) -> torch.device:
     return device
 
 
-def _check_stride(args) -> None:
-    if args.test_stride != 1:
-        raise NotImplementedError(
-            "--test_stride {}: only stride 1 is ported (ROADMAP Queue 1 #1, "
-            "'stride > 1')".format(args.test_stride))
-
-
 def _hyperparams(args, img1, img2, label_values, ignored_labels):
     hyperparams = {k: v for k, v in vars(args).items() if v is not None}
     hyperparams.update({
@@ -179,6 +196,42 @@ def _hyperparams(args, img1, img2, label_values, ignored_labels):
     return hyperparams
 
 
+def run_pretrain(args) -> Dict:
+    """MoCo pretraining (``--pretrain``; JAX ``run_pretrain``) on
+    ``--device`` in float32, with the reference's moco_based_NNCNet
+    defaults (ref: model_utils.py:473-487: patch 9, lr 5e-4, 200 epochs,
+    batch 64), flip always on, ``--radiation_augmentation`` /
+    ``--mixture_augmentation`` on view 2, the encoder seeded from
+    ``--seed``. Best-epoch files under ``./checkpoints/dualmodalencoder/
+    <dataset>/pre_train/``. Prints one JSON line (epoch losses, the best
+    file) on stdout and returns it as a dict."""
+    device = _device(args.device)
+    (img1, img2, gt, label_values, ignored_labels, rgb_bands,
+     palette) = get_dataset(args.dataset, args.folder)
+    hp = {"patch_size": args.patch_size or 9, "lr": args.lr or 5e-4,
+          "epoch": args.epoch or 200, "batch_size": args.batch_size or 64,
+          "cos": args.cos, "dataset": args.dataset}
+    aug = AugmentConfig(flip=True, radiation=args.radiation_augmentation,
+                        mixture=args.mixture_augmentation)
+    pipe = TwoViewPipeline(img1, img2, gt, hp["patch_size"],
+                           list(ignored_labels), len(label_values),
+                           augment=aug, device=device)
+    encoder = DualModalEncoder(img1.shape[-1], img2.shape[-1], embed_dim=128)
+    init_parameters(encoder, args.seed)
+    encoder.to(device)
+    pre = Pretrainer(encoder, hp, pipe, queue_size=args.queue_size,
+                     momentum=args.moco_momentum,
+                     temperature=args.moco_temperature, seed=args.seed,
+                     savename=args.model)
+    pre.fit(run=0, dataset_name=args.dataset, log_every=args.log_every)
+    result = {"mode": "pretrain", "dataset": args.dataset,
+              "device": str(device), "centers": len(pipe),
+              "queue_size": pre.moco.queue.shape[0], "losses": pre.losses,
+              "best_checkpoint": pre.best_checkpoint}
+    print(json.dumps(result), flush=True)
+    return result
+
+
 def run_serve(args, in_stream=None, out_stream=None,
               state_dict: Optional[Dict[str, torch.Tensor]] = None) -> int:
     """Build the model once, load ``--restore`` into it strictly (or
@@ -186,7 +239,6 @@ def run_serve(args, in_stream=None, out_stream=None,
     before it goes to ``--device``, then answer JSON-line requests until
     EOF or quit. Returns the number of requests served."""
     device = _device(args.device)
-    _check_stride(args)
     (img1, img2, gt, label_values, ignored_labels, rgb_bands,
      palette) = get_dataset(args.dataset, args.folder)
     model, spec, hp = get_model(args.model, **_hyperparams(
@@ -243,7 +295,6 @@ class _Setup:
 
     def __init__(self, args):
         self.device = _device(args.device)
-        _check_stride(args)
         (self.img1, self.img2, self.gt, self.label_values,
          self.ignored_labels, rgb_bands, palette) = get_dataset(
             args.dataset, args.folder)
@@ -367,6 +418,8 @@ def _run(args, state_dict, run: int, setup: _Setup):
     served, _, _ = get_model(args.model, **hp)
     served.load_state_dict(best, strict=True)
     served.to(device).eval()
+    if args.debug_nans:
+        nancheck.watch(served)
     probabilities = full_scene_probabilities(served, img1, img2, hp,
                                              chunk=args.infer_chunk)
     prediction = np.argmax(probabilities, axis=-1)
@@ -428,6 +481,8 @@ def run_experiments(args, state_dict: Optional[Dict[str, torch.Tensor]] = None
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.pretrain:
+        return run_pretrain(args)
     if args.serve:
         return run_serve(args)
     return run_experiments(args)

@@ -21,6 +21,10 @@ does not consume and on any port parameter or statistic left unset.
 for tests and smoke runs that need all of them non-trivial (NonLocal's
 output BN scale starts at zero, so init weights would hide it);
 :func:`seeded_state_dict` gives the same values as a port state_dict.
+:func:`moco_state_to_flax` / :func:`flax_to_moco_state` carry a MoCo
+pretraining state (``vit_cnn_tpu.models.moco.MoCoState`` as
+``flax.serialization.to_state_dict`` gives it: ``key_variables``,
+``queue``, ``queue_ptr``) across.
 """
 
 from __future__ import annotations
@@ -138,6 +142,26 @@ def state_dict_to_flax(model: nn.Module,
             node = node.setdefault(part, {})
         node[name] = np.ascontiguousarray(arr)
     return tree
+
+
+def moco_state_to_flax(encoder: nn.Module, moco) -> Dict:
+    """A port ``MoCoState`` (models/moco.py) of ``encoder`` as the JAX
+    MoCoState's state dict of numpy arrays."""
+    return {"key_variables": state_dict_to_flax(encoder, moco.key_variables),
+            "queue": moco.queue.detach().cpu().numpy(),
+            "queue_ptr": np.asarray(moco.queue_ptr, np.int32)}
+
+
+def flax_to_moco_state(tree: Dict, encoder: nn.Module, device="cpu"):
+    """The JAX MoCoState's state dict as a port ``MoCoState`` of
+    ``encoder`` on ``device`` (the key variables strict both ways)."""
+    from .models.moco import MoCoState
+
+    key = flax_to_state_dict(tree["key_variables"], encoder)
+    return MoCoState({k: v.to(device) for k, v in key.items()},
+                     torch.tensor(np.asarray(tree["queue"], np.float32),
+                                  device=device),
+                     int(tree["queue_ptr"]))
 
 
 #: learned tokens and positions of the transformer zoo, MFT and HCTnet

@@ -1,16 +1,23 @@
-"""Full-scene sliding-window inference, stride-1 row-band path.
+"""Full-scene sliding-window inference.
 
 Port of :mod:`vit_cnn_tpu.infer.fullscene`. The scene stays on the
-device; at stride 1 every (H-P+1) x (W-P+1) window origin is visited
-row-major, a band of ``rows`` origin rows at a time: the band's windows
-are P*P static slices of a (rows+P-1)-row strip (``band_patches``), the
-model runs on the whole band, and each window's logits add into its
-center pixel of an (H, W, K) float32 map with one contiguous slice add.
-Border pixels receive no probability mass (ref: model_utils.py:1127-1131).
+device, and each window's logits add into its center pixel of an
+(H, W, K) float32 map; border pixels receive no probability mass (ref:
+model_utils.py:1127-1131).
 
-Stride > 1 (the generic per-origin path) raises for now. A PCA model's
-HSI is reduced on the host once per scene and kept PCA'd in the
-:class:`SceneCache` (the JAX package reduces it again on every request).
+* Stride 1: every (H-P+1) x (W-P+1) window origin is visited row-major,
+  a band of ``rows`` origin rows at a time: the band's windows are P*P
+  static slices of a (rows+P-1)-row strip (``band_patches``), the model
+  runs on the whole band, and the logits add into the map with one
+  contiguous slice add.
+* Stride > 1: the generic per-origin path (:func:`per_origin_map`), the
+  origins of :func:`sliding_window_origins` a chunk at a time, gathered
+  by :func:`gather_windows` and scattered into the map by an
+  accumulating index add.
+
+A PCA model's HSI is reduced on the host once per scene and kept PCA'd
+in the :class:`SceneCache` (the JAX package reduces it again on every
+request).
 """
 
 from __future__ import annotations
@@ -83,6 +90,54 @@ def sliding_window_origins(h: int, w: int, patch_size: int,
     return np.stack([xx, yy], axis=1).astype(np.int32)
 
 
+def gather_windows(img: torch.Tensor, origins: torch.Tensor,
+                   patch_size: int) -> torch.Tensor:
+    """(N, P, P, C) windows at (N, 2) top-left ``origins`` of an (H, W, C)
+    scene by one advanced-indexing gather; indices are clamped to the
+    scene, so an out-of-range origin replicates the edge."""
+    di = torch.arange(patch_size, device=img.device)
+    r = (origins[:, 0, None, None] + di[None, :, None]).clamp(
+        0, img.shape[0] - 1)
+    c = (origins[:, 1, None, None] + di[None, None, :]).clamp(
+        0, img.shape[1] - 1)
+    return img[r, c]
+
+
+def per_origin_map(apply_fn, scene1: torch.Tensor, scene2: torch.Tensor,
+                   patch_size: int, n_classes: int, step: int,
+                   chunk: int) -> torch.Tensor:
+    """The (H, W, K) float32 map of the generic path (JAX
+    ``_chunk_scatter_fn``): the origins of ``sliding_window_origins`` at
+    ``step``, padded to a multiple of ``chunk`` with origin (0, 0) and
+    ``valid`` 0, ``chunk`` windows a model call. Each window's float32
+    logits, times ``valid``, add into its center pixel. The add
+    accumulates repeated indices (``index_add_`` on the flattened map):
+    when the scene fits in one chunk, the padding shares a scatter with
+    the real origin (0, 0)."""
+    h, w = scene1.shape[:2]
+    device = scene1.device
+    p = patch_size
+    origins = sliding_window_origins(h, w, p, step)
+    n = len(origins)
+    rem = -n % chunk
+    origins = torch.as_tensor(np.concatenate(
+        [origins, np.zeros((rem, 2), np.int32)]), dtype=torch.long,
+        device=device)
+    valid = torch.cat([torch.ones(n, device=device),
+                       torch.zeros(rem, device=device)])
+    centers = (origins[:, 0] + p // 2) * w + origins[:, 1] + p // 2
+    probs = torch.zeros((h * w, n_classes), dtype=torch.float32,
+                        device=device)
+    for i in range(0, n + rem, chunk):
+        o = origins[i:i + chunk]
+        out = apply_fn(gather_windows(scene1, o, p),
+                       gather_windows(scene2, o, p))
+        logits = out[0] if isinstance(out, tuple) else out
+        probs.index_add_(0, centers[i:i + chunk],
+                         logits.float() * valid[i:i + chunk, None])
+    return probs.reshape(h, w, n_classes)
+
+
 def band_patches(band: torch.Tensor, rows: int, patch_size: int):
     """(rows * Wc, P, P, C) windows of a (rows+P-1, W, C) band via P*P
     static slices; Wc = W - P + 1."""
@@ -107,15 +162,14 @@ def full_scene_probabilities(model: torch.nn.Module, img1: np.ndarray,
     cast in place, the scene is held in bf16, the map accumulates in
     float32). With ``hyperparams["applyPCA"]`` the HSI goes through the
     model's own ``pca_components`` (the reference hardcodes 3,
-    QUIRKS.md), memoised in ``cache``. The map comes back to the host as a
-    numpy array."""
+    QUIRKS.md), memoised in ``cache``. ``hyperparams["test_stride"]``
+    (default 1) above 1 takes the per-origin path. The map comes back to
+    the host as a numpy array."""
     patch_size = int(hyperparams["patch_size"])
     n_classes = int(hyperparams["n_classes"])
     step = int(hyperparams.get("test_stride", 1))
-    if step != 1:
-        raise NotImplementedError(
-            "test_stride {} > 1: the generic per-origin path is ROADMAP "
-            "Queue 1, 'stride > 1'".format(step))
+    if step < 1:
+        raise ValueError("test_stride {} < 1".format(step))
 
     device = next(model.parameters()).device
     bf16 = bool(hyperparams.get("bf16"))
@@ -126,6 +180,9 @@ def full_scene_probabilities(model: torch.nn.Module, img1: np.ndarray,
            if hyperparams.get("applyPCA") else 0)
     scene1 = cache.get(img1, dtype, device, pca)
     scene2 = cache.get(img2, dtype, device)
+    if step > 1:
+        return per_origin_map(apply_fn, scene1, scene2, patch_size,
+                              n_classes, step, chunk).cpu().numpy()
 
     h, w = scene1.shape[:2]
     p = patch_size

@@ -11,7 +11,8 @@ Request fields (all optional):
   pred         path to save the argmax label map (.npy)
   gt           path to a ground-truth map; the response then carries
                OA/AA/Kappa (vit_cnn_tpu_torch.metrics)
-  stride       test stride override (only 1 is ported)
+  stride       test stride override (1: the row-band path; above 1: the
+               per-origin path)
   cmd          "quit" ends the loop
 
 Response: {"ok": true, "seconds": ..., "shape": [...], "uploads": n, ...}

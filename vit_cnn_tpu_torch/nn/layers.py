@@ -185,11 +185,14 @@ class ChannelLastBatchNorm(nn.Module):
     variance (torch would take the unbiased one). Statistics are float32
     (float64 for float64 x); the output is in x's dtype, and the running
     statistics keep their own dtype (float32 under the bf16 policies).
-    ``zero_scale`` starts the scale at zero (NonLocal's output BN).
+    ``zero_scale`` starts the scale at zero (NonLocal's output BN). A
+    subclass with ``updates_statistics`` False normalises a train-mode
+    batch with its statistics and leaves the running ones as they are.
     """
 
     eps = 1e-5
     decay = 0.9          # flax momentum: the share of the old statistic
+    updates_statistics = True
 
     def __init__(self, features: int, zero_scale: bool = False):
         super().__init__()
@@ -212,11 +215,14 @@ class ChannelLastBatchNorm(nn.Module):
             axes = tuple(range(x.dim() - 1))
             mean = xf.mean(dim=axes)
             var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0)
-            with torch.no_grad():
-                self.running_mean.copy_(self.decay * self.running_mean.to(f)
-                                        + (1 - self.decay) * mean)
-                self.running_var.copy_(self.decay * self.running_var.to(f)
-                                       + (1 - self.decay) * var)
+            if self.updates_statistics:
+                with torch.no_grad():
+                    self.running_mean.copy_(
+                        self.decay * self.running_mean.to(f)
+                        + (1 - self.decay) * mean)
+                    self.running_var.copy_(
+                        self.decay * self.running_var.to(f)
+                        + (1 - self.decay) * var)
         else:
             mean, var = self.running_mean.to(f), self.running_var.to(f)
         mul = torch.rsqrt(var + self.eps) * self.weight.to(f)

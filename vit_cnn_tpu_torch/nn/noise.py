@@ -39,7 +39,7 @@ def drawing(source: Source):
         _source.reset(token)
 
 
-def _affine(u: torch.Tensor, low: float, high: float) -> torch.Tensor:
+def affine(u: torch.Tensor, low: float, high: float) -> torch.Tensor:
     """[0, 1) -> [low, high), as ``jax.random.uniform`` maps its floats
     (floored at ``low``)."""
     if low == 0.0 and high == 1.0:
@@ -56,7 +56,7 @@ def uniform(shape: Sequence[int], device, low: float = 0.0,
         raise RuntimeError("a train-mode draw of the zoo (dropout or Gumbel "
                            "noise) outside noise.drawing(generator)")
     if isinstance(source, torch.Generator):
-        return _affine(torch.rand(tuple(shape), generator=source,
+        return affine(torch.rand(tuple(shape), generator=source,
                                   device=device), low, high)
     return source(tuple(shape), device, low, high)
 
@@ -70,7 +70,7 @@ class Recorder:
         self.draws: List[torch.Tensor] = []
 
     def __call__(self, shape, device, low, high):
-        u = _affine(torch.rand(shape, generator=self.generator,
+        u = affine(torch.rand(shape, generator=self.generator,
                                device=self.generator.device), low, high)
         self.draws.append(u.cpu())
         return u.to(device)

@@ -1,7 +1,6 @@
 """Patch pipeline: the scenes on the device, batches gathered there.
 
-Port of :mod:`vit_cnn_tpu.pipeline.patches` for the flagship's train
-route (flip/rotate only, folded into the gather):
+Port of :mod:`vit_cnn_tpu.pipeline.patches`:
 
 * :func:`interior_indices`, :func:`build_class_index_table` — host-side
   index selection, numpy, identical to the JAX module's;
@@ -12,25 +11,38 @@ route (flip/rotate only, folded into the gather):
   flip/rotate transforms as offset grids, and the per-sample draw with
   the reference's probabilities from an explicit ``torch.Generator`` on
   the device (its bits are not jax.random's; tests feed explicit codes);
-* :class:`PatchPipeline` — ``make_batch``, ``to_compute_dtype``,
-  ``epoch_order`` (the same ``np.random.RandomState`` permutation as JAX,
-  so the shuffle order is identical) and ``device_arrays``.
+* :func:`radiation_noise`, :func:`mixture_noise` — the reference's two
+  spectral noises (ref: datasets.py:528-545) on a batch, their draws
+  (:func:`draw_noise`) made batched on the generator's device and passed
+  in explicitly, so a test can hand in the JAX package's draws;
+* :class:`PatchPipeline` — ``make_batch`` (flip/rotate folded into the
+  gather, then radiation noise with p 0.1, then mixture noise with p 0.2,
+  on the HSI only), ``to_compute_dtype``, ``epoch_order`` (the same
+  ``np.random.RandomState`` permutation as JAX, so the shuffle order is
+  identical) and ``device_arrays``.
 
-Radiation and mixture noise are not on the flagship's train route; they
-raise until ROADMAP Queue 1 ports them.
+Under the bf16 policy the scenes are bf16, and the noises compute as the
+JAX package's jitted step does: the float32 weights promote a noised
+patch to float32, and the forward casts the batch to bf16. The normal
+noise stays float32: JAX draws it in the patch's dtype, but XLA computes
+the draw fused into the float32 sum at float32 precision (on the CPU the
+jitted program's bf16 normal is not rounded to bf16).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from functools import lru_cache
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-_NOISE = ("radiation and mixture augmentation are not ported yet: ROADMAP "
-          "Queue 1, 'training: radiation / mixture noise'")
+from ..nn.noise import affine
+
+#: per-sample probabilities of the two noises (ref: datasets.py:699-707)
+RADIATION_P, MIXTURE_P = 0.1, 0.2
+BETA = 1.0 / 25
 
 
 def interior_indices(gt: np.ndarray, patch_size: int,
@@ -121,6 +133,38 @@ def sample_geom_code(generator: torch.Generator, batch: int) -> torch.Tensor:
     return torch.where(take_flip, flip_code, rot_code)
 
 
+def radiation_noise(data: torch.Tensor, alpha: torch.Tensor,
+                    noise: torch.Tensor, beta: float = BETA) -> torch.Tensor:
+    """alpha * data + beta * N(0, 1) (ref: datasets.py:528-532) for (B,)
+    float32 ``alpha`` in [0.9, 1.1) and float32 standard normal ``noise``
+    of data's shape."""
+    return alpha.view(-1, 1, 1, 1) * data + beta * noise
+
+
+def mixture_noise(data: torch.Tensor, label_patch: torch.Tensor,
+                  scene: torch.Tensor, class_table: torch.Tensor,
+                  class_counts: torch.Tensor, ignored_mask: torch.Tensor,
+                  alpha: torch.Tensor, pick: torch.Tensor,
+                  noise: torch.Tensor, beta: float = BETA) -> torch.Tensor:
+    """Blend each pixel with a random same-class training spectrum (ref:
+    datasets.py:534-545): pixel (i, j) of sample b, with label l =
+    ``label_patch[b, i, j]``, takes the spectrum of ``scene`` at row
+    floor(pick * max(count_l, 1)) of class l's table as its partner (zero
+    for an ignored or empty class), and becomes (a1 d + a2 partner) /
+    (a1 + a2) + beta * N(0, 1). ``alpha``: (B, 2) float32 weights in
+    [0.01, 1); ``pick``: (B, P, P) uniforms; ``noise``: float32 standard
+    normal of data's shape."""
+    cnt = class_counts[label_patch]
+    rows = torch.floor(pick * cnt.clamp_min(1)).long()
+    rc = class_table[label_patch, rows]                   # (B, P, P, 2)
+    partner = scene[rc[..., 0], rc[..., 1]]
+    ign = ignored_mask[label_patch] | (cnt == 0)
+    partner = partner.masked_fill(ign[..., None], 0)
+    a1 = alpha[:, 0].view(-1, 1, 1, 1)
+    a2 = alpha[:, 1].view(-1, 1, 1, 1)
+    return (a1 * data + a2 * partner) / (a1 + a2) + beta * noise
+
+
 @dataclasses.dataclass(frozen=True)
 class AugmentConfig:
     flip: bool = False
@@ -135,8 +179,6 @@ class PatchPipeline:
                  patch_size: int, ignored_labels: Sequence[int],
                  n_classes: int, augment: AugmentConfig = AugmentConfig(),
                  supervision: str = "full", device="cpu"):
-        if augment.radiation or augment.mixture:
-            raise NotImplementedError(_NOISE)
         self.patch_size = int(patch_size)
         self.augment_cfg = augment
         self.n_classes = n_classes
@@ -155,6 +197,14 @@ class PatchPipeline:
             if 0 <= label < n_classes:
                 ign[label] = True
         self.ignored_mask = torch.as_tensor(ign, device=self.device)
+        self.class_table = self.class_counts = None
+        if augment.mixture:
+            table, counts = build_class_index_table(gt, self.indices,
+                                                    n_classes)
+            self.class_table = torch.as_tensor(table, dtype=torch.long,
+                                               device=self.device)
+            self.class_counts = torch.as_tensor(counts, dtype=torch.long,
+                                                device=self.device)
         gr, gc = _geom_offset_grids(self.patch_size)
         self._grids = (torch.as_tensor(gr, dtype=torch.long,
                                        device=self.device),
@@ -178,14 +228,67 @@ class PatchPipeline:
     def device_arrays(self):
         return {"scene1": self.scene1, "scene2": self.scene2, "gt": self.gt}
 
+    def draw_noise(self, generator: torch.Generator,
+                   shape: Sequence[int]) -> Dict[str, torch.Tensor]:
+        """The draws of the configured noises for a batch of HSI patches
+        of ``shape`` (B, P, P, C), made on the generator's device: per
+        sample a gate uniform and the weights, per pixel the mixture's
+        pick, and the normal noise."""
+        cfg, g = self.augment_cfg, generator
+        b, dev = shape[0], generator.device
+        draws = {}
+        if cfg.radiation:
+            u = torch.rand((2, b), generator=g, device=dev)
+            draws.update(radiation_gate=u[0],
+                         radiation_alpha=affine(u[1], 0.9, 1.1),
+                         radiation_noise=torch.randn(
+                             tuple(shape), generator=g, device=dev))
+        if cfg.mixture:
+            u = torch.rand((b, 3), generator=g, device=dev)
+            draws.update(mixture_gate=u[:, 0],
+                         mixture_alpha=affine(u[:, 1:], 0.01, 1.0),
+                         mixture_pick=torch.rand(tuple(shape[:3]),
+                                                 generator=g, device=dev),
+                         mixture_noise=torch.randn(
+                             tuple(shape), generator=g, device=dev))
+        return draws
+
+    def add_noise(self, generator: Optional[torch.Generator],
+                  p1: torch.Tensor, label_patch: torch.Tensor,
+                  draws: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> torch.Tensor:
+        """Radiation noise (p 0.1 a sample), then mixture noise (p 0.2) on
+        the HSI patches ``p1``, the configured ones, with the (post-flip)
+        ``label_patch``; ``draws`` (:meth:`draw_noise`'s keys) instead of
+        drawing from ``generator``."""
+        cfg = self.augment_cfg
+        if not (cfg.radiation or cfg.mixture):
+            return p1
+        if draws is None:
+            draws = self.draw_noise(generator, p1.shape)
+        if cfg.radiation:
+            gate = (draws["radiation_gate"] < RADIATION_P).view(-1, 1, 1, 1)
+            p1 = torch.where(gate, radiation_noise(
+                p1, draws["radiation_alpha"], draws["radiation_noise"]), p1)
+        if cfg.mixture:
+            gate = (draws["mixture_gate"] < MIXTURE_P).view(-1, 1, 1, 1)
+            p1 = torch.where(gate, mixture_noise(
+                p1, label_patch, self.scene1, self.class_table,
+                self.class_counts, self.ignored_mask,
+                draws["mixture_alpha"], draws["mixture_pick"],
+                draws["mixture_noise"]), p1)
+        return p1
+
     def make_batch(self, generator: Optional[torch.Generator],
                    centers: torch.Tensor, train: bool = True,
-                   codes: Optional[torch.Tensor] = None):
-        """Gather (and, for training with flip on, flip/rotate) one batch:
-        (hsi_patches, lidar_patches, center_labels). ``codes`` gives the
-        per-sample transforms explicitly instead of drawing them from
-        ``generator``. The label is the patch's center pixel, as every
-        ported model's ``center_pixel=True`` asks."""
+                   codes: Optional[torch.Tensor] = None,
+                   draws: Optional[Dict[str, torch.Tensor]] = None):
+        """Gather (and, for training, flip/rotate when flip is on, then the
+        configured noises) one batch: (hsi_patches, lidar_patches,
+        center_labels). ``codes`` gives the per-sample transforms and
+        ``draws`` the noises' draws explicitly instead of drawing them
+        from ``generator``. The label is the patch's center pixel after
+        the flip, as every ported model's ``center_pixel=True`` asks."""
         p = self.patch_size
         offsets = None
         if train and self.augment_cfg.flip and p > 1:
@@ -194,6 +297,7 @@ class PatchPipeline:
             offsets = (self._grids[0][codes], self._grids[1][codes])
         p1 = gather_patches(self.scene1, centers, p, offsets)
         p2 = gather_patches(self.scene2, centers, p, offsets)
-        labels = gather_patches(self.gt[..., None], centers, p,
-                                offsets)[:, p // 2, p // 2, 0]
-        return p1, p2, labels
+        lp = gather_patches(self.gt[..., None], centers, p, offsets)[..., 0]
+        if train:
+            p1 = self.add_noise(generator, p1, lp, draws)
+        return p1, p2, lp[:, p // 2, p // 2]

@@ -134,12 +134,16 @@ def load_scene(crop: Optional[Tuple[int, int]] = None):
 
 def train_step(scene, state, device, batch: int,
                model: str = "Multimodality_Mamba", bf16: bool = False,
-               flip: bool = False, seed: int = 0):
+               flip: bool = False, seed: int = 0, radiation: bool = False,
+               mixture: bool = False, debug_nans: bool = False):
     """A Trainer of the registered ``model`` on ``device`` from ``state``
-    (on the PCA of ``scene``'s HSI for a PCA model), and one batch of centers (the first of its seeded shuffle) with its
-    ``valid`` mask and a zero loss sum: ``trainer._step(*args)`` runs one
-    step (the zoo's dropout and Gumbel noise from ``trainer.noise``, the
-    trainer's generator unless the caller sets another source)."""
+    (on the PCA of ``scene``'s HSI for a PCA model), and one batch of
+    centers (the first of its seeded shuffle) with its ``valid`` mask and
+    a zero loss sum: ``trainer._step(*args)`` runs one step (the zoo's
+    dropout and Gumbel noise from ``trainer.noise``, the trainer's
+    generator unless the caller sets another source). ``flip``,
+    ``radiation`` and ``mixture`` are the augmentations, ``debug_nans``
+    the NaN checks of ``--debug_nans``."""
     from ..models.registry import get_model
     from ..pipeline.patches import AugmentConfig, PatchPipeline
     from ..train.loop import Trainer
@@ -151,13 +155,16 @@ def train_step(scene, state, device, batch: int,
     net, _, hp = get_model(
         model, dataset="Synthetic", n_classes=n_classes,
         n_bands=(img1.shape[2], img2.shape[2]), ignored_labels=[0],
-        batch_size=batch, epoch=1, bf16=bf16, flip_augmentation=flip)
+        batch_size=batch, epoch=1, bf16=bf16, flip_augmentation=flip,
+        debug_nans=debug_nans)
     if hp["applyPCA"]:                  # HCTnet trains on the scene's PCA
         img1 = apply_pca(img1, hp["pca_components"])
     net.load_state_dict(state)
     net.to(device)
     pipe = PatchPipeline(img1, img2, gt, hp["patch_size"], [0], n_classes,
-                         augment=AugmentConfig(flip=flip), device=device)
+                         augment=AugmentConfig(flip=flip, radiation=radiation,
+                                               mixture=mixture),
+                         device=device)
     trainer = Trainer(net, hp, pipe, seed=seed)
     centers = torch.as_tensor(
         pipe.epoch_order(np.random.RandomState(seed))[:batch], device=device)

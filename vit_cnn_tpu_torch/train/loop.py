@@ -3,7 +3,8 @@
 Port of :class:`vit_cnn_tpu.train.loop.Trainer` (ref: model_utils.py:854-
 1045 train, :1135-1158 val). One step is the JAX ``Trainer._step``:
 
-  patch gather with flip/rotate folded in (PatchPipeline.make_batch)
+  patch gather with flip/rotate folded in, then radiation and mixture
+     noise when configured (PatchPipeline.make_batch)
   -> forward in train mode (BatchNorm on batch statistics, running
      statistics updated; the zoo's dropout and Gumbel noise drawn from
      ``noise``), under the bf16 policy over float32 master weights when
@@ -22,7 +23,8 @@ does, writes the best-epoch and final-epoch checkpoint files
 working directory by default. ``save_resumable`` / ``restore_resumable``
 write and read the whole train state: model, optimizer moments, step,
 the shuffle's RandomState and the device generator (the augmentation's
-and the noise's).
+and the noise's). With ``hyperparams["debug_nans"]`` the step stops at
+the first NaN, as ``jax_debug_nans`` does (:mod:`..utils.nancheck`).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from ..convert import state_dict_to_flax
 from ..nn import noise
 from ..nn.precision import bf16_train_apply
 from ..pipeline.patches import PatchPipeline
+from ..utils import nancheck
 from . import checkpoint as ckpt
 from .losses import LOSSES
 from .optim import OptimizerSpec, build_lr_schedule, build_optimizer
@@ -136,6 +139,9 @@ class Trainer:
                                  "evaluation gathers stay float32")
             pipeline.to_compute_dtype(torch.bfloat16)
         self._forward = bf16_train_apply(model) if self.bf16 else model
+        self.debug_nans = bool(hyperparams.get("debug_nans"))
+        if self.debug_nans:
+            nancheck.watch(model)
 
     # ------------------------------------------------------------------
     def _step(self, centers: torch.Tensor, valid: torch.Tensor,
@@ -149,7 +155,11 @@ class Trainer:
             out = self._forward(p1, p2)
         loss = self.loss_fn(out, labels, self.class_weights, valid)
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if self.debug_nans:
+            nancheck.check(loss, "the loss")
+            nancheck.backward(loss)
+        else:
+            loss.backward()
         for p in self.model.parameters():
             if p.grad is None:
                 # a parameter the loss does not reach (S2EFT's gate conv,
@@ -159,6 +169,8 @@ class Trainer:
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.steps_done)
         self.optimizer.step()
+        if self.debug_nans:
+            nancheck.check_parameters(self.model)
         self.steps_done += 1
         return loss_sum + loss.detach()
 
