@@ -113,6 +113,23 @@ the result lines:
    without the checks, and a poisoned parameter raising
    ``FloatingPointError`` naming a module.
 
+12. path_types — run right after phase 9: every path type of the Mamba
+   layer (the 13 of ``path_spec``) at the flagship's stage-1 width (hidden
+   144, d 72, 81 tokens), seeded weights: one float32 forward + backward at
+   batch 32 on the card against the CPU (forward within 1e-3 of max(1,
+   max|cpu|), every gradient within phase 6's limit), the card's bf16
+   forward within 2e-2 of the float32 one's largest entry, the shuffle
+   permutations drawn on the CPU and replayed, and K1-K3 / K5-K7 launched
+   exactly as the path's streams say (no K3 for the per-sample gate); bf16
+   times of the forward at the serving band and of forward + backward at
+   the train batch. The batch-major ``MambaMixer`` at batch 1,024, and
+   2-layer backbones over the cls positions, output types, sine and no
+   position embedding, 'multi_clock_gate' (no kernel) and dropout 0.1 in
+   train mode (masks replayed), each card against CPU. K2, K3, K6 and K7
+   at the shuffle paths' stream counts (nb, nr) = (1, 0), (2, 1), (3, 1)
+   on freshly drawn rows against their plain versions (their errors join
+   phase 2's rows).
+
 Phase 2 also holds K8 and K9 (float32 and bf16, at every zoo band shape,
 a ragged batch, one token, 17 tokens, odd hd and the 512-token limit) and
 times both dtypes beside their plain versions,
@@ -121,8 +138,8 @@ for K9, the composition of the plain group LayerNorm with K8.
 
 Then one JSON line with the kernel table (time, plain time, bound and what
 bounds it, library time, launches per path: serve, train, runloop,
-serve_zoo, train_zoo, cnn_zoo, serve_stride, train_aug and sweep), and as
-the last line
+serve_zoo, train_zoo, cnn_zoo, serve_stride, train_aug, path_types and
+sweep), and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -232,6 +249,39 @@ RAGGED_SCANS = (("ragged", 6, 81, 72, RAGGED, False),
 RAGGED_HEADS = (("ragged", RAGGED, 65, 16, 4), ("ragged", RAGGED, 65, 4, 16),
                 ("one token", RAGGED, 1, 16, 4),
                 ("one token", RAGGED, 1, 4, 16))
+# phase path_types: every path type of the Mamba layer at the flagship's
+# stage-1 width (hidden 144, d 72, 81 tokens; the sequence paths at 81
+# too), card against CPU at PATH_BATCH in float32 (forward within PATH_TOL
+# of max(1, max|cpu|), every gradient within phase 6's GRAD_TOL), card
+# bf16 against card float32 within PATH_BF16_TOL of the largest entry;
+# the shuffle permutations and dropout masks drawn on the CPU and
+# replayed on the card. Times: bf16 forward at the serving band and bf16
+# forward + backward at the train batch, PATH_REPS repetitions each.
+PATH_TYPES = ("forward", "shuffle", "eight_directions_gate", "9twoclock",
+              "25twoclock", "49twoclock", "81twoclock", "49_2+8", "81_2+8",
+              "forward_reverse_mean", "forward_reverse_gate",
+              "forward_reverse_shuffle_gate", "forward_reverse_shuffle_mean")
+PATH_HIDDEN, PATH_D, PATH_L, PATH_BATCH = 144, 72, 81, 32
+PATH_TOL, PATH_BF16_TOL = 1e-3, 2e-2
+PATH_REPS = 10
+# K2 / K3 / K6 / K7 stream counts (nb, nr) of the shuffle paths ('shuffle';
+# 'forward_reverse_shuffle_*'; and one more static base)
+SHUFFLE_STREAMS = ((1, 0), (2, 1), (3, 1))
+# 2-layer backbones: (path_type, pe_type, cls_position, out_type, drop_rate)
+PATH_BACKBONES = (
+    ("forward_reverse_shuffle_gate", "learnable", "head", "cls_token", 0.0),
+    ("forward", "learnable", "tail", "cls_token", 0.0),
+    ("forward_reverse_gate", "learnable", "head_tail", "cls_token", 0.0),
+    ("shuffle", "learnable", "middle", "cls_token", 0.0),
+    ("forward_reverse_mean", "learnable", "middle", "featmap", 0.0),
+    ("forward_reverse_shuffle_mean", "learnable", "head_tail",
+     "avg_featmap", 0.0),
+    ("forward", "none", "tail", "raw", 0.0),
+    ("81_2+8", "sine", "none", "featmap", 0.0),
+    ("81twoclock", "none", "none", "avg_featmap", 0.0),
+    ("multi_clock_gate", "learnable", "none", "raw", 0.0),
+    ("forward_reverse_shuffle_gate", "sine", "none", "featmap", 0.1),
+    ("eight_directions_gate", "learnable", "none", "featmap", 0.1))
 
 
 class Failed(Exception):
@@ -2479,6 +2529,282 @@ def phase_run_modes(tmp, state, card):
     return serve_counts, train_counts, figures
 
 
+def _shuffle_stream_kernels(rows):
+    """K2 and K3 (and their adjoints K6, K7) at the shuffle paths' stream
+    counts (nb, nr) of SHUFFLE_STREAMS, on a row drawn anew for every
+    call after nb - 1 static ones, against their plain versions; the
+    errors join phase 2's rows."""
+    import torch
+
+    from vit_cnn_tpu_torch.ops import dirstream
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    L, d, b = PATH_L, PATH_D, BAND_WINDOWS
+    i32 = dict(dtype=torch.int32, device="cuda")
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for nb, nr in SHUFFLE_STREAMS:
+            perms = [torch.randperm(L, generator=g, device="cuda")
+                     for _ in range(nb)]
+            orders = torch.stack(perms).to(torch.int32)
+            inv = torch.stack([torch.argsort(p) for p in perms]).to(
+                torch.int32)
+            rev_rows = torch.arange(nr, **i32)
+            u = randn(L, d, b).to(dtype)
+            cw, cb = 0.5 * randn(4, d), 0.1 * randn(d)
+            tag = "nb={} nr={} L={} d={} b={}".format(nb, nr, L, d, b)
+            yf, yr = dirstream.dir_conv_silu(u, cw, cb, orders, rev_rows)
+            err = _compare("K2 dir_conv_silu " + tag, (yf, yr),
+                           dirstream.dir_conv_silu_reference(
+                               u, cw, cb, orders, rev_rows), dn)
+            _record(rows, "dir_conv_silu", err, dn)
+            w = torch.softmax(randn(nb + nr), 0)
+            wf, wr = w[:nb], w[nb:]
+            err = _compare("K3 inv_perm_weighted_sum " + tag,
+                           dirstream.inv_perm_weighted_sum(
+                               yf, yr, wf, wr, inv, rev_rows),
+                           dirstream.inv_perm_weighted_sum_reference(
+                               yf, yr, wf, wr, inv, rev_rows), dn)
+            _record(rows, "inv_perm_weighted_sum", err, dn)
+            gf, gr = randn(nb, L, d, b).to(dtype), randn(nr, L, d, b).to(
+                dtype)
+            err = _compare("K6 dir_conv_silu bwd " + tag,
+                           dirstream.dir_conv_silu_backward(
+                               u, cw, cb, orders, rev_rows, gf, gr),
+                           dirstream.dir_conv_silu_backward_reference(
+                               u, cw, cb, orders, rev_rows, gf, gr), dn,
+                           summed=(1, 2))
+            _record(rows, "dir_conv_silu_backward", err, dn)
+            cot = randn(L, d, b).to(dtype)
+            err = _compare("K7 inv_perm_weighted_sum bwd " + tag,
+                           dirstream.inv_perm_weighted_sum_backward(
+                               gf, gr, wf, wr, inv, rev_rows, cot),
+                           dirstream.inv_perm_weighted_sum_backward_reference(
+                               gf, gr, wf, wr, inv, rev_rows, cot), dn,
+                           summed=(2, 3))
+            _record(rows, "inv_perm_weighted_sum_backward", err, dn)
+            del u, yf, yr, gf, gr, cot
+    torch.cuda.synchronize()
+
+
+def _path_want(layer):
+    """K1-K3 and K5-K7 launches of one float32 forward + backward of a
+    Mamba layer: a forward (and a reverse) scan, one directional conv, one
+    inverse sum unless the per-sample gate restores the directions
+    apart."""
+    nr = 1 if layer.rev_rows.numel() else 0
+    k3 = 0 if layer.combine == "dynamic" else 1
+    fwd = {"selective_scan": 1 + nr, "dir_conv_silu": 1,
+           "inv_perm_weighted_sum": k3}
+    return dict(fwd, **{k + "_backward": v for k, v in fwd.items()})
+
+
+def _grad_ratio(g_card, g_cpu):
+    """Worst ||card - cpu|| of a set of gradients against phase 6's limit
+    GRAD_TOL ||cpu|| + GRAD_ATOL max ||cpu||, and its name."""
+    floor = GRAD_ATOL * max(float(g.norm()) for g in g_cpu.values())
+    return max((float((g_card[k] - g).norm())
+                / (GRAD_TOL * float(g.norm()) + floor), k)
+               for k, g in g_cpu.items())
+
+
+def _card_vs_cpu(net, x, cot, draws=None):
+    """One float32 forward + backward of ``net`` on the CPU (its draws
+    recorded) and on the card (the draws replayed); returns (out_cpu,
+    out_card, grads_cpu, grads_card, card launches). ``net`` ends on the
+    card."""
+    import torch
+
+    from vit_cnn_tpu_torch.nn import noise
+    from vit_cnn_tpu_torch.ops import _build
+
+    rec = noise.Recorder(torch.Generator().manual_seed(SEED))
+    outs, grads = {}, {}
+    for device in ("cpu", "cuda"):
+        net.to(device).zero_grad(set_to_none=True)
+        xt = torch.tensor(x, device=device, requires_grad=True)
+        source = rec if device == "cpu" else noise.Replay(rec.draws)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            _build.launches.clear()
+        with noise.drawing(source):
+            out = net(xt)
+        out.backward(torch.tensor(cot, device=device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = dict(_build.launches)
+        outs[device] = out.detach().to("cpu", copy=True)
+        grads[device] = {"input": xt.grad.to("cpu", copy=True), **{
+            k: p.grad.to("cpu", copy=True)
+            for k, p in net.named_parameters() if p.grad is not None}}
+    if draws is not None:
+        draws.extend(rec.draws)
+    return outs["cpu"], outs["cuda"], grads["cpu"], grads["cuda"], counts
+
+
+def phase_path_types(rows, card):
+    """Every path type of the Mamba layer, MambaMixer and the backbone's
+    variants on the card against the CPU; returns (the launches of the
+    checked float32 runs, summed, and the figures)."""
+    import copy
+    import numpy as np
+    import torch
+
+    from vit_cnn_tpu_torch.convert import seeded_state_dict
+    from vit_cnn_tpu_torch.nn import MambaMixer, noise
+    from vit_cnn_tpu_torch.nn.mamba import (DirectionalMambaBackbone,
+                                            MultiDirMambaLayer)
+    from vit_cnn_tpu_torch.nn.precision import bf16_train_apply
+    from vit_cnn_tpu_torch.ops import _build
+    from vit_cnn_tpu_torch.tools import median_ms as _median_ms
+
+    t_phase = time.perf_counter()
+    _shuffle_stream_kernels(rows)
+    H, L, B = PATH_HIDDEN, PATH_L, PATH_BATCH
+    rng = np.random.RandomState(SEED)
+    total, figures, failed = {}, {"card": card, "layers": {}}, []
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def check(label, d, limit):
+        ok = d <= limit
+        if not ok:
+            failed.append(label)
+        return "ok" if ok else "FAIL"
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x_band = torch.randn((BAND_WINDOWS, L, H), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    x_train = torch.randn((TRAIN_BATCH, L, H), generator=gen, device="cuda",
+                          requires_grad=True)
+    for path in PATH_TYPES:
+        layer = MultiDirMambaLayer(H, PATH_D, path, L)
+        layer.load_state_dict(seeded_state_dict(layer, SEED))
+        x = rng.randn(B, L, H).astype(np.float32)
+        cot = rng.randn(B, L, H).astype(np.float32)
+        draws = []
+        want, got, g_cpu, g_card, counts = _card_vs_cpu(layer, x, cot, draws)
+        add(counts)
+        top = float(want.abs().max())
+        d = float((got - want).abs().max())
+        st = check(path + " f32", d, PATH_TOL * max(1.0, top))
+        ratio, worst = _grad_ratio(g_card, g_cpu)
+        st_g = check(path + " gradients", ratio, 1.0)
+        expect = _path_want(layer)
+        st_n = "ok" if all(counts.get(k, 0) == v for k, v in expect.items()) \
+            else "FAIL"
+        if st_n != "ok":
+            failed.append(path + " launches")
+        # bf16 on the card against its float32 output, same draws
+        l16 = copy.deepcopy(layer).to(torch.bfloat16)
+        with torch.no_grad(), noise.drawing(noise.Replay(draws)):
+            o16 = l16(torch.tensor(x, device="cuda").to(torch.bfloat16))
+        d16 = float((o16.float().cpu() - got).abs().max())
+        st_b = check(path + " bf16", d16, PATH_BF16_TOL * top)
+        # times: bf16 forward at the serving band, bf16 forward + backward
+        # (float32 master weights, as training) at the train batch
+        with torch.no_grad(), noise.drawing(gen):
+            ms_fwd = _median_ms(lambda: l16(x_band), reps=PATH_REPS)
+        train_fn = bf16_train_apply(layer)
+
+        def step():
+            with noise.drawing(gen):
+                train_fn(x_train).sum().backward()
+
+        ms_step = _median_ms(step, reps=PATH_REPS)
+        layer.zero_grad(set_to_none=True)
+        print("[path_types] {:<29s} f32 max|diff| {:.2e} of max|cpu| {:.2e} "
+              "{}; {} gradients worst ||diff|| {:.2e} of its limit ({}) {}; "
+              "bf16 vs f32 {:.2e} {}; launches {} {}; bf16 forward b={} "
+              "{:.3f} ms, forward + backward b={} {:.3f} ms".format(
+                  path, d, top, st, len(g_cpu), ratio, worst, st_g, d16,
+                  st_b, json.dumps(counts, sort_keys=True), st_n,
+                  BAND_WINDOWS, ms_fwd, TRAIN_BATCH, ms_step), flush=True)
+        figures["layers"][path] = dict(
+            f32_max_abs_diff=d, f32_max_abs=top, grad_worst_ratio=ratio,
+            bf16_max_abs_diff=d16, launches=counts, shuffle_draws=len(draws),
+            bf16_forward_ms=ms_fwd, bf16_forward_backward_ms=ms_step)
+        del layer, l16, train_fn
+    del x_band, x_train
+
+    # the single MambaMixer, batch-major at the train batch
+    mixer = MambaMixer(H, PATH_D)
+    mixer.load_state_dict(seeded_state_dict(mixer, SEED))
+    x = rng.randn(TRAIN_BATCH, L, H).astype(np.float32)
+    cot = rng.randn(TRAIN_BATCH, L, H).astype(np.float32)
+    want, got, g_cpu, g_card, counts = _card_vs_cpu(mixer, x, cot)
+    add(counts)
+    top = float(want.abs().max())
+    d = float((got - want).abs().max())
+    st = check("MambaMixer f32", d, PATH_TOL * max(1.0, top))
+    ratio, worst = _grad_ratio(g_card, g_cpu)
+    st_g = check("MambaMixer gradients", ratio, 1.0)
+    expect = {"selective_scan": 1, "dir_conv_silu": 1,
+              "selective_scan_backward": 1, "dir_conv_silu_backward": 1}
+    st_n = "ok" if counts == expect else "FAIL"
+    if st_n != "ok":
+        failed.append("MambaMixer launches")
+    print("[path_types] MambaMixer b={} L={} hidden={} d={}: f32 max|diff| "
+          "{:.2e} of max|cpu| {:.2e} {}; {} gradients worst ||diff|| {:.2e} "
+          "of its limit ({}) {}; launches {} {}".format(
+              TRAIN_BATCH, L, H, PATH_D, d, top, st, len(g_cpu), ratio,
+              worst, st_g, json.dumps(counts, sort_keys=True), st_n),
+          flush=True)
+    figures["MambaMixer"] = dict(f32_max_abs_diff=d, f32_max_abs=top,
+                                 grad_worst_ratio=ratio, launches=counts)
+    del mixer
+
+    # 2-layer backbones: cls positions, output types, position embeddings,
+    # 'multi_clock_gate' and dropout in train mode
+    side = int(round(L ** 0.5))
+    for path, pe, cls, out, rate in PATH_BACKBONES:
+        net = DirectionalMambaBackbone(H, 2, PATH_D, side, H, path_type=path,
+                                       out_type=out, pe_type=pe,
+                                       cls_position=cls, drop_rate=rate)
+        net.load_state_dict(seeded_state_dict(net, SEED))
+        net.train(rate > 0)
+        x = rng.randn(B, side, side, H).astype(np.float32)
+        with torch.no_grad(), noise.drawing(torch.Generator()):
+            shape = net(torch.tensor(x)).shape
+        cot = rng.randn(*shape).astype(np.float32)
+        draws = []
+        want, got, g_cpu, g_card, counts = _card_vs_cpu(net, x, cot, draws)
+        add(counts)
+        top = float(want.abs().max())
+        d = float((got - want).abs().max())
+        label = "backbone {} pe={} cls={} out={} drop={}".format(
+            path, pe, cls, out, rate)
+        st = check(label, d, PATH_TOL * max(1.0, top))
+        ratio, worst = _grad_ratio(g_card, g_cpu)
+        st_g = check(label + " gradients", ratio, 1.0)
+        mixers = 0 if path == "multi_clock_gate" else 2
+        fwd = _path_want(net.mixer0) if mixers else {}
+        expect = {k: mixers * v for k, v in fwd.items()}
+        st_n = "ok" if all(counts.get(k, 0) == v for k, v in expect.items()) \
+            else "FAIL"
+        if st_n != "ok":
+            failed.append(label + " launches")
+        print("[path_types] {}: out {} f32 max|diff| {:.2e} of max|cpu| "
+              "{:.2e} {}; {} gradients worst ||diff|| {:.2e} of its limit "
+              "({}) {}; {} draws; launches {} {}".format(
+                  label, tuple(shape), d, top, st, len(g_cpu), ratio, worst,
+                  st_g, len(draws), json.dumps(counts, sort_keys=True),
+                  st_n), flush=True)
+        figures.setdefault("backbones", {})[label] = dict(
+            f32_max_abs_diff=d, f32_max_abs=top, grad_worst_ratio=ratio,
+            draws=len(draws), launches=counts)
+        del net
+    torch.cuda.synchronize()
+    figures["seconds"] = time.perf_counter() - t_phase
+    print("[path_types] {:.1f} s".format(figures["seconds"]), flush=True)
+    if failed:
+        raise Failed("path_types: {}".format(", ".join(failed)))
+    return total, figures
+
+
 def main():
     import torch
 
@@ -2503,6 +2829,7 @@ def main():
         rows = phase_kernels()
         phase_adjoints(rows)
         sweep_counts = phase_variants(rows)
+        path_counts, path_figures = phase_path_types(rows, card)
         with tempfile.TemporaryDirectory() as tmp:
             os.chdir(tmp)       # the CLI's ./checkpoints and ./results
             try:
@@ -2580,7 +2907,7 @@ def main():
              "runloop": runloop_counts, "serve_zoo": zoo,
              "train_zoo": zoo_train, "cnn_zoo": cnn,
              "serve_stride": stride_counts, "train_aug": aug_counts,
-             "sweep": sweep_counts}
+             "path_types": path_counts, "sweep": sweep_counts}
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
                   launches=paths["train" if name in ADJOINTS else
                                  "serve_zoo" if name in HEADS else
@@ -2595,6 +2922,7 @@ def main():
     print("[zoo_train] {}".format(json.dumps(zoo_steady)), flush=True)
     print("[cnn_zoo] {}".format(json.dumps(cnn_figures)), flush=True)
     print("[run_modes] {}".format(json.dumps(mode_figures)), flush=True)
+    print("[path_types] {}".format(json.dumps(path_figures)), flush=True)
     print(card, flush=True)                  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """Training the CNN zoo in the port against the JAX package, on the CPU.
 
-* The CPU's oneDNN fault behind ``nn.layers.Conv``'s explicit padding:
+* The CPU's oneDNN faults behind ``nn.layers.Conv``'s explicit padding:
   the bf16 weight gradient of a stride-1 3-D conv padded on its depth,
-  kernel deeper than the input, 16 input channels. The plain
-  ``F.conv3d`` gets it wrong (garbage or NaN) on every call at this
-  shape in torch 2.13.0; ``Conv``'s padded path gets it right every call.
+  kernel deeper than the input, 16 input channels, and the float32 one
+  of a strided padded 3-D conv. ``Conv``'s padded path gets both right
+  on every call; whether the plain ``F.conv3d`` reproduces the bf16
+  fault (garbage or NaN in torch 2.13.0) depends on the heap, so that is
+  reported and not held.
 * One float64 train step of each CNN model at its registry width and
   patch size over 12 + 1 bands (13 + 1 for MFT: its HetConv's other group
   count), port against ``jax.grad`` under ``enable_x64``: the loss (the
@@ -25,6 +27,7 @@
 import io
 import json
 import os
+import warnings
 
 import flax
 import flax.linen as fnn
@@ -66,37 +69,59 @@ def one_thread():
 # --------------------------------------------------------------------------
 
 def test_bf16_padded_conv3d_weight_gradient_is_right_through_conv():
-    """x (1, 16, 2, 1, 1), w (1, 16, 3, 1, 1), padding (1, 0, 0), stride
-    1, bf16: 20 weight gradients of each path against the float64 one
-    (limit 2e-2 of its largest entry, a few bf16 steps). The plain conv
-    fails at least once in 20 calls (every call, where it reproduces);
-    ``Conv`` pads explicitly on the CPU and passes all 20."""
+    """The two cases behind ``Conv``'s explicit padding, 20 weight
+    gradients each through ``Conv`` against the float64 one (limit 2e-2
+    of its largest entry, a few bf16 steps):
+
+    * bf16 at stride 1: x (1, 16, 2, 1, 1), w (1, 16, 3, 1, 1), padding
+      (1, 0, 0);
+    * float32 strided: x (2, 1, 8, 1, 1), w (16, 1, 11, 1, 1), stride
+      (3, 1, 1), padding (5, 0, 0).
+
+    ``Conv`` pads explicitly on the CPU and must pass all 40. Whether the
+    plain ``F.conv3d`` reproduces the library's fault depends on the
+    state of the heap (every call in a busy worker, none in a fresh
+    process), so its count is reported, not held: a warning when it was
+    right in all 20 calls of a case."""
     g = torch.Generator().manual_seed(0)
-    x = torch.randn((1, 16, 2, 1, 1), generator=g).bfloat16()
-    w = torch.randn((1, 16, 3, 1, 1), generator=g).bfloat16()
-    gy = torch.randn((1, 1, 2, 1, 1), generator=g).bfloat16()
-    w64 = w.double().requires_grad_(True)
-    (ref,) = torch.autograd.grad(
-        F.conv3d(x.double(), w64, None, 1, (1, 0, 0)), w64, gy.double())
-    conv = Conv(16, 1, (3, 1, 1), padding=(1, 0, 0), use_bias=False)
+    cases = [(torch.bfloat16, (1, 16, 2, 1, 1), (1, 16, 3, 1, 1), 1,
+              (1, 0, 0)),
+             (torch.float32, (2, 1, 8, 1, 1), (16, 1, 11, 1, 1), (3, 1, 1),
+              (5, 0, 0))]
+    for dtype, xs, ws, stride, padding in cases:
+        x = torch.randn(xs, generator=g).to(dtype)
+        w = torch.randn(ws, generator=g).to(dtype)
+        w64 = w.double().requires_grad_(True)
+        y64 = F.conv3d(x.double(), w64, None, stride, padding)
+        gy = torch.randn(y64.shape, generator=g).to(dtype)
+        (ref,) = torch.autograd.grad(y64, w64, gy.double())
+        conv = Conv(ws[1], ws[0], ws[2:], strides=stride, padding=padding,
+                    use_bias=False)
 
-    def wrong(fn):
-        wr = w.clone().requires_grad_(True)
-        (gw,) = torch.autograd.grad(fn(wr), wr, gy)
-        err = float((gw.double() - ref).abs().max())
-        return not err <= 2e-2 * float(ref.abs().max())
+        def wrong(fn):
+            wr = w.clone().requires_grad_(True)
+            (gw,) = torch.autograd.grad(fn(wr), wr, gy)
+            err = float((gw.double() - ref).abs().max())
+            return not err <= 2e-2 * float(ref.abs().max())
 
-    def through_conv(wr):
-        y = torch.func.functional_call(conv, {"weight": wr},
-                                       (x.movedim(1, -1),))
-        return y.movedim(-1, 1)
+        def through_conv(wr):
+            y = torch.func.functional_call(conv, {"weight": wr},
+                                           (x.movedim(1, -1),))
+            return y.movedim(-1, 1)
 
-    plain = sum(wrong(lambda wr: F.conv3d(x, wr, None, 1, (1, 0, 0)))
-                for _ in range(20))
-    ported = sum(wrong(through_conv) for _ in range(20))
-    assert ported == 0
-    assert plain > 0, ("torch's CPU conv3d is right here now: drop the "
-                       "bf16 case of nn.layers.Conv's explicit padding")
+        ported = sum(wrong(through_conv) for _ in range(20))
+        assert ported == 0, (dtype, ported)
+        if dtype == torch.bfloat16:
+            # the strided case's fault is heap corruption that may abort
+            # the process: only the bf16 one runs the plain conv
+            plain = sum(wrong(lambda wr: F.conv3d(x, wr, None, stride,
+                                                  padding))
+                        for _ in range(20))
+            if plain == 0:
+                warnings.warn("torch's CPU conv3d gave the right bf16 weight "
+                              "gradient in 20 of 20 calls here: if it does "
+                              "so in every run, drop the bf16 case of "
+                              "nn.layers.Conv's explicit padding")
 
 
 # --------------------------------------------------------------------------

@@ -16,7 +16,11 @@ under autograd at the zoo's train shapes (batch 1024: K8 at 65, 145 and
 146 tokens on a fused qkv's views, K9 at MHST's 65 tokens). K1 and
 K2 at the edges of their tiles: b = 1, 31, 33, 7,588; d = 1, 5, 72, 128;
 n = 1, 7, 16; L = 1, 2, 3, 81; k = 1, 4, 8; forward and reverse; and
-K1's tile as the C entry point plans it equal to ``scan_tile``. The tuning
+K1's tile as the C entry point plans it equal to ``scan_tile``. K2, K3,
+K6 and K7 at the shuffle paths' stream counts (nb, nr) = (1, 0), (2, 1),
+(3, 1) with an order row drawn anew on every call, and the Mamba layer of
+every path kind and the batch-major MambaMixer against the CPU with their
+launch counts. The tuning
 sweep's variants: every instance of the first K1's tile and chunk grid
 (V1) against the plain scan and, within the same tolerance, against K1,
 the batch-major scan (V2) at
@@ -832,3 +836,124 @@ def test_variant_wrappers_refuse_what_the_kernels_do_not_take(gen):
         heads_attention_outer(t, t, t, 0.25)
     with pytest.raises(ValueError, match="forward only"):
         heads_attention_outer(q.requires_grad_(), q, q, 0.25)
+
+
+# --------------------------------------------------------------------------
+# the shuffle paths' stream counts, and the Mamba layers on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nb,nr", [(1, 0), (2, 1), (3, 1)])
+def test_dirstream_with_a_fresh_order_row(gen, dtype, nb, nr):
+    """K2, K3 and their adjoints K6, K7 at the stream counts of the shuffle
+    paths: nb - 1 static rows, then a row drawn anew on every call (as
+    MultiDirMambaLayer appends its shuffle permutation), so a table kept
+    from an earlier launch would show."""
+    L, d, b = 81, 72, 333
+    static, static_inv = _orders(L, nb, 7)
+    rr = torch.arange(nr, dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        p = torch.randperm(L, generator=gen, device="cuda")
+        orders = torch.cat([static[:nb - 1], p.to(torch.int32)[None]])
+        inv = torch.cat([static_inv[:nb - 1],
+                         torch.argsort(p).to(torch.int32)[None]])
+        u = _randn(gen, L, d, b).to(dtype)
+        cw, cb = 0.5 * _randn(gen, 4, d), 0.1 * _randn(gen, d)
+        got = dir_conv_silu(u, cw, cb, orders, rr)
+        _close(got, dir_conv_silu_reference(u, cw, cb, orders, rr), dtype)
+        yf, yr = got
+        w = torch.softmax(_randn(gen, nb + nr), 0)
+        wf, wr = w[:nb], w[nb:]
+        _close(inv_perm_weighted_sum(yf, yr, wf, wr, inv, rr),
+               inv_perm_weighted_sum_reference(yf, yr, wf, wr, inv, rr),
+               dtype)
+        gf, gr = (_randn(gen, n, L, d, b).to(dtype) for n in (nb, nr))
+        du, dcw, dcb = dir_conv_silu_backward(u, cw, cb, orders, rr, gf, gr)
+        want = dir_conv_silu_backward_reference(u, cw, cb, orders, rr, gf,
+                                                gr)
+        _close(du, want[0], dtype)
+        _close_summed(dcw, want[1], dtype)
+        _close_summed(dcb, want[2], dtype)
+        cot = _randn(gen, L, d, b).to(dtype)
+        got = inv_perm_weighted_sum_backward(yf, yr, wf, wr, inv, rr, cot)
+        want = inv_perm_weighted_sum_backward_reference(yf, yr, wf, wr, inv,
+                                                        rr, cot)
+        _close(got[:2], want[:2], dtype)
+        for x, y in zip(got[2:], want[2:]):
+            _close_summed(x, y, dtype)
+
+
+def _layer_on_both(net, x, draws):
+    """float32 forward + backward of ``net`` on the CPU, then on the card
+    with the CPU's draws replayed: (outputs, gradients) of each."""
+    from vit_cnn_tpu_torch.nn import noise
+
+    rec = noise.Recorder(torch.Generator().manual_seed(0))
+    res = []
+    for device in ("cpu", "cuda"):
+        net.to(device).zero_grad(set_to_none=True)
+        xt = x.to(device).detach().requires_grad_(True)
+        with noise.drawing(rec if device == "cpu"
+                           else noise.Replay(rec.draws)):
+            out = net(xt)
+        out.backward(torch.ones_like(out))
+        # copies: moving the module to the card moves its grads too
+        res.append((out.detach().cpu(), [xt.grad.to("cpu", copy=True)] + [
+            p.grad.to("cpu", copy=True) for p in net.parameters()]))
+    draws.extend(rec.draws)
+    return res
+
+
+def _grads_match(got, want):
+    for g, w in zip(got, want):
+        scale = float(w.norm())
+        assert float((g - w).norm()) <= 1e-3 * scale + 1e-6, (
+            float((g - w).norm()), scale)
+
+
+@pytest.mark.parametrize("path", [
+    "forward", "shuffle", "eight_directions_gate", "9twoclock", "81_2+8",
+    "forward_reverse_mean", "forward_reverse_gate",
+    "forward_reverse_shuffle_gate", "forward_reverse_shuffle_mean"])
+def test_every_path_type_on_the_card(gen, path):
+    """MultiDirMambaLayer of every path kind on the card against the CPU at
+    a ragged batch, the shuffle rows replayed, with the kernels' launches:
+    K1 forward (and reverse), K2 once, K3 unless the per-sample gate
+    restores the directions apart; the same adjoints."""
+    from vit_cnn_tpu_torch.convert import seeded_state_dict
+    from vit_cnn_tpu_torch.nn.mamba import MultiDirMambaLayer
+
+    layer = MultiDirMambaLayer(32, 16, path, 81)
+    layer.load_state_dict(seeded_state_dict(layer, 1))
+    x = torch.randn((37, 81, 32), generator=torch.Generator().manual_seed(2))
+    _build.launches.clear()
+    draws = []
+    (want, g_want), (got, g_got) = _layer_on_both(layer, x, draws)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    _grads_match(g_got, g_want)
+    assert len(draws) == (path.count("shuffle"))
+    nr = int(layer.rev_rows.numel() > 0)
+    k3 = int(layer.combine != "dynamic")
+    for name, n in (("selective_scan", 1 + nr), ("dir_conv_silu", 1),
+                    ("inv_perm_weighted_sum", k3)):
+        assert _build.launches[name] == n, name
+        assert _build.launches[name + "_backward"] == n, name
+
+
+@pytest.mark.parametrize("b", [1, 33, 1001])
+def test_mamba_mixer_on_the_card(gen, b):
+    """The batch-major MambaMixer (K2 with the identity order, K1 on one
+    stream) against the CPU at batches that are no multiple of K1's
+    tile."""
+    from vit_cnn_tpu_torch.convert import seeded_state_dict
+    from vit_cnn_tpu_torch.nn import MambaMixer
+
+    mixer = MambaMixer(32, 16)
+    mixer.load_state_dict(seeded_state_dict(mixer, 3))
+    x = torch.randn((b, 81, 32), generator=torch.Generator().manual_seed(b))
+    _build.launches.clear()
+    (want, g_want), (got, g_got) = _layer_on_both(mixer, x, [])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    _grads_match(g_got, g_want)
+    assert _build.launches["selective_scan"] == 1
+    assert _build.launches["dir_conv_silu"] == 1

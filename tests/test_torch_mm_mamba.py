@@ -25,8 +25,7 @@ from vit_cnn_tpu.nn.mamba import DirectionalMambaBackbone as JaxBackbone
 from vit_cnn_tpu_torch.convert import (flax_to_state_dict, seeded_variables,
                                        state_dict_to_flax)
 from vit_cnn_tpu_torch.models.mm_mamba import MultimodalityMamba
-from vit_cnn_tpu_torch.nn.mamba import (DirectionalMambaBackbone,
-                                        MultiDirMambaLayer)
+from vit_cnn_tpu_torch.nn.mamba import DirectionalMambaBackbone
 
 RTOL, ATOL = 2e-4, 2e-5
 P, BANDS, LIDAR, K, BATCH = 9, 20, 1, 6, 4
@@ -134,15 +133,3 @@ def test_backbone_matches_jax(img, path):
         got = tb(torch.from_numpy(x)).numpy()
     assert got.shape == (3, img, img, embed)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
-
-
-@pytest.mark.parametrize("build", [
-    lambda: MultiDirMambaLayer(16, 8, "shuffle", 9),
-    lambda: MultiDirMambaLayer(16, 8, "forward_reverse_gate", 9),
-    lambda: MultiDirMambaLayer(16, 8, "multi_clock_gate", 9),
-    lambda: DirectionalMambaBackbone(16, 1, 8, 3, 4, path_type="9_2+8",
-                                     pe_type="sine"),
-])
-def test_unported_variants_raise(build):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build()

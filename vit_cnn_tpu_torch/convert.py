@@ -6,10 +6,11 @@ picked by the port module that owns it (the module at ``a.b``), never by
 the array's shape; a ``kernel`` goes by the module's ``flax_kernel``:
 
   params/.../kernel  "dense" (in, out)                 -> weight (out, in)
+                             (the Mamba layer's per-sample ``gate`` too)
                      "conv"  (*k, in / groups, out)     -> weight
                              (out, in / groups, *k), 1-D to 3-D kernels
                      "taps"  (k, 1, d) depthwise taps   -> weight (k, d)
-  params/.../scale   LayerNorm / BatchNorm             -> weight
+  params/.../scale   LayerNorm / BatchNorm (``ln2``)   -> weight
   params/.../<other> bias, pos_embed, A_log, cls_token, skipcat0,
                      token_wA, dim_reduce, ...          -> same name, shape
   batch_stats/.../mean, var                 -> running_mean, running_var

@@ -1,12 +1,17 @@
-"""The transformer zoo's train-mode noise: dropout masks and the Gumbel
-uniforms of MHST's head selection.
+"""The port's random draws inside a forward: dropout masks, the Gumbel
+uniforms of MHST's head selection and the token permutations of the
+Mamba layer's shuffle streams.
 
-Every draw goes through :func:`uniform`, which takes its numbers from
-the source :func:`drawing` made current: a ``torch.Generator`` on the
-device of the draw (the Trainer's), or a :class:`Recorder` /
-:class:`Replay`, which let two runs (the card and the CPU, the port and
-the JAX package) share one set of draws. A train-mode draw outside
-``drawing`` raises: the zoo never draws from a global generator.
+Every draw goes through :func:`uniform` or :func:`permutation`, which
+take their numbers from the source :func:`drawing` made current: a
+``torch.Generator`` on the device of the draw (the Trainer's), or a
+:class:`Recorder` / :class:`Replay`, which let two runs (the card and the
+CPU, the port and the JAX package) share one set of draws. A uniform
+drawn outside ``drawing`` raises: the zoo never draws from a global
+generator. A permutation drawn outside ``drawing`` comes from a fixed
+seed of its own (:data:`FALLBACK_SEED`), as the JAX layer falls back to
+``PRNGKey(0)`` when no 'shuffle' stream is given: the same permutation on
+every such call, though not the one JAX draws (no threefry here).
 
 :class:`Dropout` is flax's ``nn.Dropout``: keep ~ Bernoulli(1 - rate)
 (a uniform below 1 - rate), then ``x / (1 - rate)`` where kept and 0
@@ -24,6 +29,8 @@ import torch
 import torch.nn as nn
 
 Source = Union[torch.Generator, Callable]
+#: the seed of a permutation drawn outside ``drawing``
+FALLBACK_SEED = 0
 # the current source, per thread and task
 _source: contextvars.ContextVar = contextvars.ContextVar("noise_source",
                                                         default=None)
@@ -61,9 +68,23 @@ def uniform(shape: Sequence[int], device, low: float = 0.0,
     return source(tuple(shape), device, low, high)
 
 
+def permutation(n: int, device) -> torch.Tensor:
+    """A random permutation of ``range(n)`` (int64) on ``device`` from the
+    current source, or from :data:`FALLBACK_SEED` outside ``drawing``."""
+    source = _source.get()
+    if source is None:
+        g = torch.Generator().manual_seed(FALLBACK_SEED)
+        return torch.randperm(n, generator=g).to(device)
+    if isinstance(source, torch.Generator):
+        return torch.randperm(n, generator=source,
+                              device=source.device).to(device)
+    return source.permutation(n, device)
+
+
 class Recorder:
     """A source that draws from ``generator`` and keeps a CPU copy of
-    every draw, in order (``draws``)."""
+    every draw, in order (``draws``): float32 uniforms and int64
+    permutations."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -75,25 +96,43 @@ class Recorder:
         self.draws.append(u.cpu())
         return u.to(device)
 
+    def permutation(self, n, device):
+        p = torch.randperm(n, generator=self.generator,
+                           device=self.generator.device)
+        self.draws.append(p.cpu())
+        return p.to(device)
+
 
 class Replay:
     """A source that hands out ``draws`` in order, each on the device of
-    the draw; a draw of another shape, or one too many, raises."""
+    the draw; a draw of another kind (a uniform where a permutation was
+    recorded, or the reverse) or shape, or one too many, raises."""
 
     def __init__(self, draws: Sequence[torch.Tensor]):
         self.draws = list(draws)
         self.taken = 0
 
-    def __call__(self, shape, device, low, high):
+    def _take(self, shape, floating):
         if self.taken == len(self.draws):
             raise RuntimeError("replay: draw {} asked of {} recorded".format(
                 self.taken + 1, len(self.draws)))
         u = self.draws[self.taken]
-        if tuple(u.shape) != tuple(shape):
-            raise RuntimeError("replay: draw {} has shape {}, asked {}"
-                               .format(self.taken, tuple(u.shape), shape))
+        if (tuple(u.shape) != tuple(shape)
+                or u.is_floating_point() != floating):
+            kinds = ("a permutation", "a uniform")
+            raise RuntimeError("replay: draw {} is {} of shape {}, asked {} "
+                               "of shape {}".format(
+                                   self.taken, kinds[u.is_floating_point()],
+                                   tuple(u.shape), kinds[floating],
+                                   tuple(shape)))
         self.taken += 1
-        return u.to(device)
+        return u
+
+    def __call__(self, shape, device, low, high):
+        return self._take(shape, True).to(device)
+
+    def permutation(self, n, device):
+        return self._take((n,), False).to(device=device, dtype=torch.int64)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
