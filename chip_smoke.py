@@ -130,6 +130,24 @@ the result lines:
    on freshly drawn rows against their plain versions (their errors join
    phase 2's rows).
 
+13. mesh — run last: the port's mesh (vit_cnn_tpu_torch/parallel/mesh.py)
+   on this one-card host. The default run's mesh has world size 1 (one
+   card: off, as in JAX), so every phase above runs as before. Then two
+   gloo ranks share the card (``make_mesh(2, "cuda", share=True)``, this
+   process rank 0) against world size 1 on the card, the flagship at full
+   width on a 40 x 200 crop, float32, batch 64 split 32 + 32
+   (``tools/mesh_check.py``'s tasks): 3 train steps with flip (step-1 loss
+   within 1e-5 + 1e-4 |L|, the trajectory within rtol 5e-3 / atol 1e-4,
+   the BatchNorm statistics after step 1 within 1e-5 + 1e-4 |v|, the
+   ranks' parameters equal bit for bit, K1-K7 launched on both ranks, the
+   adjoints once per step and use site), the stride-1 and stride-2 maps
+   of the 12 x 64 crop within 1e-5 x max(1, max|map|), a resumable file
+   saved under the mesh and restored bit for bit then one more finite
+   step, and one MoCo step (loss within phase 6's 1e-3, queue within
+   1e-6, pointer equal); the host time a step of both beside the card's
+   name and power limit. Two processes sharing one card say nothing of a
+   multi-GPU speed.
+
 Phase 2 also holds K8 and K9 (float32 and bf16, at every zoo band shape,
 a ragged batch, one token, 17 tokens, odd hd and the 512-token limit) and
 times both dtypes beside their plain versions,
@@ -138,8 +156,8 @@ for K9, the composition of the plain group LayerNorm with K8.
 
 Then one JSON line with the kernel table (time, plain time, bound and what
 bounds it, library time, launches per path: serve, train, runloop,
-serve_zoo, train_zoo, cnn_zoo, serve_stride, train_aug, path_types and
-sweep), and as the last line
+serve_zoo, train_zoo, cnn_zoo, serve_stride, train_aug, path_types,
+sweep and mesh), and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -282,6 +300,15 @@ PATH_BACKBONES = (
     ("multi_clock_gate", "learnable", "none", "raw", 0.0),
     ("forward_reverse_shuffle_gate", "sine", "none", "featmap", 0.1),
     ("eight_directions_gate", "learnable", "none", "featmap", 0.1))
+
+
+# phase mesh: two gloo ranks sharing the card against world size 1, the
+# flagship at full width on a MESH_CROP crop, float32, MESH_BATCH split in
+# two (tools/mesh_check.py's STEPS steps; the 12 x 64 crop's maps at its
+# MAP_CHUNK: stride 1 in 4 bands of 1 origin row, 2 for each rank; stride
+# 2: 87 origins in 3 chunks, 2 for rank 0); MoCo at the same batch and
+# PRETRAIN_QUEUE
+MESH_CROP, MESH_BATCH = (40, 200), 64
 
 
 class Failed(Exception):
@@ -2805,6 +2832,64 @@ def phase_path_types(rows, card):
     return total, figures
 
 
+def phase_mesh(tmp, state, card):
+    """The mesh on the one-card host: the default run's world size (1),
+    then two gloo ranks sharing the card (``make_mesh(2, share=True)``)
+    against world size 1 on the card, the flagship at full width on a crop
+    of the scene in float32 (``tools/mesh_check.py`` ``compare``): train
+    steps (loss, trajectory, BatchNorm statistics, replicas, K1-K7 on both
+    ranks), the stride-1 and stride-2 maps, a resumable file round trip
+    and one MoCo step. Returns (K1-K7's launches in the 2-rank steps,
+    summed over the ranks; the figures)."""
+    import torch
+
+    from vit_cnn_tpu_torch import cli
+    from vit_cnn_tpu_torch.convert import seeded_state_dict
+    from vit_cnn_tpu_torch.data import get_dataset
+    from vit_cnn_tpu_torch.models.moco import DualModalEncoder
+    from vit_cnn_tpu_torch.tools import mesh_check as mc
+
+    t0 = time.perf_counter()
+    size = cli._mesh_size(cli.build_parser().parse_args(
+        ["--dataset", "Synthetic"]))
+    print("[mesh] {} CUDA device(s); the default run's mesh: world size {}"
+          .format(torch.cuda.device_count(), size), flush=True)
+    if torch.cuda.device_count() == 1 and size != 1:
+        raise Failed("one card, yet the default run makes a mesh")
+
+    img1, img2, gt = get_dataset("Synthetic", tmp)[:3]
+    hp = dict(dataset="Synthetic", n_classes=int(SCENE["VCT_SYN_CLASSES"]),
+              n_bands=(img1.shape[2], img2.shape[2]), ignored_labels=[0],
+              batch_size=MESH_BATCH, epoch=1, flip_augmentation=True)
+    crop = tuple(x[:MESH_CROP[0], :MESH_CROP[1]] for x in (img1, img2, gt))
+    case = dict(model="Multimodality_Mamba", scene=crop, hp=hp, state=state,
+                dtype="float32", device="cuda", seed=SEED)
+    map_case = dict(case, scene=tuple(x[:12, :64] for x in (img1, img2, gt)))
+    moco_case = dict(
+        scene=crop, device="cuda", seed=SEED,
+        state=seeded_state_dict(DualModalEncoder(img1.shape[2], 1), SEED),
+        hp=dict(patch_size=9, lr=5e-4, epoch=1, batch_size=MESH_BATCH,
+                radiation=True, mixture=True))
+    figures, bad = mc.compare(
+        2, "cuda", True, case, map_case, moco_case, PRETRAIN_QUEUE, tmp,
+        say=lambda text: print("[mesh] " + text, flush=True))
+    launches = figures.pop("launches")
+    for r, counts in enumerate(launches):
+        _check_counts(counts, mc.STEPS, "mesh rank {}".format(r))
+    print("[mesh] ({}) host time a step, steps 2-{}: world size 1 {:.2f} ms, "
+          "2 ranks sharing the card {:.2f} ms (two processes on one card: "
+          "no measure of a multi-GPU speed); group start {:.1f} s".format(
+              card, mc.STEPS, figures["ms_per_step_world_1"],
+              figures["ms_per_step"], figures["group_start_s"]), flush=True)
+    print("[mesh] phase {:.1f} s (world size 1 {:.1f} s, the 2-rank group "
+          "{:.1f} s)".format(time.perf_counter() - t0, figures["world_1_s"],
+                             figures["group_s"]), flush=True)
+    if bad:
+        raise Failed("mesh: {}".format("; ".join(bad)))
+    return {k: sum(c.get(k, 0) for c in launches)
+            for k in PATH_KERNELS}, figures
+
+
 def main():
     import torch
 
@@ -2846,6 +2931,7 @@ def main():
                     phase_cnn_zoo(tmp, card)
                 stride_counts, aug_counts, mode_figures = \
                     phase_run_modes(tmp, state, card)
+                mesh_counts, mesh_figures = phase_mesh(tmp, state, card)
             finally:
                 os.chdir(here)
     except Failed as e:
@@ -2907,7 +2993,8 @@ def main():
              "runloop": runloop_counts, "serve_zoo": zoo,
              "train_zoo": zoo_train, "cnn_zoo": cnn,
              "serve_stride": stride_counts, "train_aug": aug_counts,
-             "path_types": path_counts, "sweep": sweep_counts}
+             "path_types": path_counts, "sweep": sweep_counts,
+             "mesh": mesh_counts}
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
                   launches=paths["train" if name in ADJOINTS else
                                  "serve_zoo" if name in HEADS else
@@ -2923,6 +3010,7 @@ def main():
     print("[cnn_zoo] {}".format(json.dumps(cnn_figures)), flush=True)
     print("[run_modes] {}".format(json.dumps(mode_figures)), flush=True)
     print("[path_types] {}".format(json.dumps(path_figures)), flush=True)
+    print("[mesh] {}".format(json.dumps(mesh_figures)), flush=True)
     print(card, flush=True)                  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -957,3 +957,45 @@ def test_mamba_mixer_on_the_card(gen, b):
     _grads_match(g_got, g_want)
     assert _build.launches["selective_scan"] == 1
     assert _build.launches["dir_conv_silu"] == 1
+
+
+def test_two_ranks_sharing_the_card_match_one(gen):
+    """The mesh's shared-card backend: two gloo ranks on this card (this
+    process rank 0, vit_cnn_tpu_torch.parallel.mesh) against world size 1
+    on the card, on a random 20 x 24 scene of 20 + 1 bands: two flagship
+    train steps with flip at batch 16 (step-1 loss within 1e-5 + 1e-4
+    |L|, both within rtol 5e-3 / atol 1e-4, the ranks' parameters equal,
+    the adjoints launched on each rank once per step and use site) and
+    the band map (within 1e-5 of max(1, max|map|))."""
+    from vit_cnn_tpu_torch.convert import seeded_state_dict
+    from vit_cnn_tpu_torch.models.registry import get_model
+    from vit_cnn_tpu_torch.parallel import make_mesh
+    from vit_cnn_tpu_torch.tools import mesh_check as mc
+
+    rng = np.random.RandomState(0)
+    scene = (rng.rand(20, 24, 20).astype(np.float32),
+             rng.rand(20, 24, 1).astype(np.float32),
+             rng.randint(0, 5, (20, 24)))
+    hp = dict(dataset="Synthetic", n_classes=5, n_bands=(20, 1),
+              ignored_labels=[0], batch_size=16, epoch=1,
+              flip_augmentation=True)
+    case = dict(model="Multimodality_Mamba", scene=scene, hp=hp,
+                state=seeded_state_dict(get_model(
+                    "Multimodality_Mamba", **hp)[0], 0),
+                dtype="float32", device="cuda", seed=1)
+    one = mc.train_steps(None, case, 2)
+    one_map = mc.maps(None, case, (1,), chunk=32)[1]
+    with make_mesh(2, "cuda", share=True) as mesh:
+        assert mesh.backend == "gloo"
+        two = mesh.run(mc.train_steps, case, 2)
+        two_map = mesh.run(mc.maps, case, (1,), chunk=32)[1]
+    l1, l2 = one["losses"], two["losses"]
+    assert abs(l2[0] - l1[0]) <= 1e-5 + 1e-4 * abs(l1[0])
+    np.testing.assert_allclose(l2, l1, rtol=5e-3, atol=1e-4)
+    assert two["spread"] == 0.0
+    for counts in two["launches"]:
+        assert counts["selective_scan_backward"] == 4 * 2
+        assert counts["inv_perm_weighted_sum_backward"] == 2 * 2
+    assert np.abs(one_map).sum() > 0
+    np.testing.assert_allclose(two_map, one_map, rtol=0, atol=1e-5 * max(
+        1.0, float(np.abs(one_map).max())))

@@ -405,6 +405,32 @@ def test_sine_embedding_equals_jax():
             jax_mamba.sincos_2d_position_embedding(h, w, e))
 
 
+def test_bf16_sine_backbone_matches_jax_bf16():
+    """A two-layer sine backbone in bf16 against the JAX backbone in bf16
+    (its parameters cast to bf16, as ``cast_floating`` does, and bf16
+    input), from the same converted weights, at the bf16 limit (2e-2,
+    2e-2). JAX adds the sine table as a float32 constant, which promotes
+    its tokens and every later layer to float32 (from the bf16
+    parameters); the port adds the table in the tokens' dtype and stays
+    in bf16. The two agree within the limit: max|diff| 0.021 against a
+    largest |output| of 3.34 (the worst entry at 0.79 of its allowance),
+    so the port keeps its bf16 path."""
+    jb, tb, x = _backbone_case("49_2+8", 7, "sine", "none", "featmap", 0)
+    _, tree = _tree(jb, x, train=False)
+    _load(tb, tree)
+    as_bf16 = lambda t: jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, jnp.bfloat16), t)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(jb.apply(as_bf16(tree), xb, train=False), np.float32)
+    tb.to(torch.bfloat16).eval()
+    with torch.no_grad():
+        got = tb(torch.tensor(np.asarray(xb.astype(jnp.float32))).to(
+            torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2)
+
+
 def test_backbone_init_matches_flax_init_rules():
     """reset_parameters: cls tokens zeros (flax zeros init), the gate
     parameters as the JAX layer initialises them."""

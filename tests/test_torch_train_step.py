@@ -53,15 +53,48 @@ def _port_model(tree):
     return tm
 
 
-@pytest.fixture(scope="module")
-def steps():
-    jm = JaxFlagship(img_size=P, in_channels1=BANDS, in_channels2=LIDAR,
-                     dim_embedding=32, n_classes=K)
+def jax_flagship(bands=BANDS, lidar=LIDAR, n_classes=K):
+    """The JAX flagship at patch P, width 32, and its seeded variables."""
+    jm = JaxFlagship(img_size=P, in_channels1=bands, in_channels2=lidar,
+                     dim_embedding=32, n_classes=n_classes)
     key = jax.random.PRNGKey(0)
     init = flax.core.unfreeze(jax.eval_shape(lambda: jm.init(
-        {"params": key, "dropout": key}, jnp.zeros((2, P, P, BANDS)),
-        jnp.zeros((2, P, P, LIDAR)), train=False)))
-    tree = seeded_variables(init, seed=0)
+        {"params": key, "dropout": key}, jnp.zeros((2, P, P, bands)),
+        jnp.zeros((2, P, P, lidar)), train=False)))
+    return jm, seeded_variables(init, seed=0)
+
+
+def jax_step(jm, tree, hsi, lidar, labels, weights, valid, dtype):
+    """JAX's train-mode step in ``dtype``: (loss, the gradients and the
+    updated batch stats under the port's state_dict keys, float64)."""
+    key = jax.random.PRNGKey(0)
+    cast = lambda t: jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, dtype), t)
+    variables = cast(tree)
+
+    def loss_fn(params):
+        out, upd = jm.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            jnp.asarray(hsi, dtype), jnp.asarray(lidar, dtype),
+            train=True, mutable=["batch_stats"], rngs={"dropout": key})
+        return jax_ce(out, jnp.asarray(labels),
+                      jnp.asarray(weights, dtype),
+                      jnp.asarray(valid, dtype)), upd
+
+    (loss, upd), grads = jax.jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(variables["params"])
+    as64 = lambda t: jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float64), jax.device_get(t))
+    want = flax_to_state_dict(
+        {"params": as64(grads), "batch_stats": as64(upd["batch_stats"])},
+        MultimodalityMamba(P, hsi.shape[-1], lidar.shape[-1], 32,
+                           jm.n_classes).double())
+    return float(loss), want
+
+
+@pytest.fixture(scope="module")
+def steps():
+    jm, tree = jax_flagship()
     rng = np.random.RandomState(1)
     hsi = rng.rand(BATCH, P, P, BANDS).astype(np.float32)
     lidar = rng.rand(BATCH, P, P, LIDAR).astype(np.float32)
@@ -69,28 +102,8 @@ def steps():
     weights = np.array([0, 1, 1, 0.5, 1, 2], np.float32)
     valid = np.array([1, 1, 1, 0], np.float32)       # a padded last row
 
-    def jax_step(dtype):
-        cast = lambda t: jax.tree_util.tree_map(
-            lambda a: jnp.asarray(a, dtype), t)
-        variables = cast(tree)
-
-        def loss_fn(params):
-            out, upd = jm.apply(
-                {"params": params, "batch_stats": variables["batch_stats"]},
-                jnp.asarray(hsi, dtype), jnp.asarray(lidar, dtype),
-                train=True, mutable=["batch_stats"], rngs={"dropout": key})
-            return jax_ce(out, jnp.asarray(labels),
-                          jnp.asarray(weights, dtype),
-                          jnp.asarray(valid, dtype)), upd
-
-        (loss, upd), grads = jax.jit(jax.value_and_grad(
-            loss_fn, has_aux=True))(variables["params"])
-        as64 = lambda t: jax.tree_util.tree_map(
-            lambda a: np.asarray(a, np.float64), jax.device_get(t))
-        want = flax_to_state_dict(
-            {"params": as64(grads), "batch_stats": as64(upd["batch_stats"])},
-            MultimodalityMamba(P, BANDS, LIDAR, 32, K).double())
-        return float(loss), want
+    def jax_step_(dtype):
+        return jax_step(jm, tree, hsi, lidar, labels, weights, valid, dtype)
 
     def port_step(dtype):
         tm = _port_model(tree).to(dtype).train()
@@ -103,8 +116,8 @@ def steps():
         return float(loss.detach()), tm
 
     with jax.enable_x64(True):
-        jax64 = jax_step(jnp.float64)
-    return {"jax64": jax64, "jax32": jax_step(jnp.float32),
+        jax64 = jax_step_(jnp.float64)
+    return {"jax64": jax64, "jax32": jax_step_(jnp.float32),
             "port64": port_step(torch.float64),
             "port32": port_step(torch.float32)}
 

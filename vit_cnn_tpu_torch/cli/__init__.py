@@ -26,6 +26,15 @@ report under ``<out_dir>/<dataset>_<model>/``; then the aggregated report
 ``--runs`` > 1 an aggregated line. Status lines and the text reports go
 to stderr; the reports also go to ``report.txt``. ``--pretrain`` is
 dispatched before ``--serve``, as in the JAX package.
+
+The mesh (:mod:`..parallel.mesh`) engages as the JAX command line's: for
+the run loop and ``--serve`` (not ``--pretrain``), when more than one
+device is visible and ``--no_mesh`` is off, over ``--n_devices`` of them
+(all by default). On the card the visible devices are the CUDA cards, so
+one card leaves the mesh off; on the CPU only ``--n_devices`` makes a
+mesh (``--device cpu --n_devices 2``: two gloo ranks). This process is
+rank 0 and the only one that prints and writes files; a failure on any
+rank ends every rank and raises here.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from ..metrics.report import show_results
 from ..models.moco import DualModalEncoder
 from ..models.registry import get_model, model_names
 from ..nn.layers import init_parameters
+from ..parallel.mesh import make_mesh, visible_devices
 from ..pipeline.patches import AugmentConfig, PatchPipeline
 from ..pipeline.twoview import TwoViewPipeline
 from ..train.checkpoint import restore_state_dict
@@ -60,9 +70,9 @@ from ..utils.palette import build_palette, convert_to_color
 from ..utils.seeding import seed_everything
 from ..utils.viz import ArtifactWriter
 
-#: flags of the JAX command line the port does not take: the mesh
-#: (ROADMAP Queue 1) and --download, which is not to port
-LEFT_OUT = ("download", "n_devices", "no_mesh")
+#: flags of the JAX command line the port does not take: --download,
+#: which is not to port (neither host has the network)
+LEFT_OUT = ("download",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -145,6 +155,11 @@ def build_parser() -> argparse.ArgumentParser:
     group_run.add_argument("--profile_dir", type=str, default=None,
                            help="Write a torch.profiler trace of run 0's "
                                 "first training epoch to this directory")
+    group_run.add_argument("--n_devices", type=int, default=None,
+                           help="Mesh size for data-parallel train/infer "
+                                "(default: all visible devices)")
+    group_run.add_argument("--no_mesh", action="store_true",
+                           help="Force single-device execution")
     group_run.add_argument("--bf16", action="store_true",
                            help="bfloat16 compute policy for the model")
     group_run.add_argument("--infer_chunk", type=int, default=8192,
@@ -184,6 +199,43 @@ def _device(name: str) -> torch.device:
                            "--device cpu to run the plain versions on the "
                            "CPU)".format(name))
     return device
+
+
+def _mesh_size(args) -> int:
+    """The ranks of the run's mesh, 1 for none: the JAX command line's
+    rule (a mesh when more than one device is visible and ``--no_mesh`` is
+    off, over ``--n_devices`` of them, all by default). The visible
+    devices are the CUDA cards, or on the CPU ``--n_devices``; asking for
+    more than are visible raises."""
+    if args.no_mesh:
+        return 1
+    device = _device(args.device)
+    visible = (visible_devices(device) if device.type == "cuda"
+               else args.n_devices or 1)
+    n = args.n_devices or visible
+    if n > visible:
+        raise ValueError("--n_devices {}: {} CUDA device(s) visible".format(
+            n, visible))
+    return n if visible > 1 else 1
+
+
+def _on_mesh(args, fn, *fn_args, here: Optional[Dict] = None):
+    """``fn(mesh, *fn_args)`` on every rank of the run's mesh (``here``:
+    rank 0's own keyword arguments), or ``fn(None, ...)`` here without
+    one; rank 0's result."""
+    n = _mesh_size(args)
+    if n == 1:
+        return fn(None, *fn_args, **(here or {}))
+    with make_mesh(n, args.device) as mesh:
+        print("mesh: {} devices on 'data'".format(n), file=sys.stderr,
+              flush=True)
+        return mesh.run(fn, *fn_args, here=here)
+
+
+def _say(mesh, text: str) -> None:
+    """A status line on stderr, from rank 0 only."""
+    if mesh is None or mesh.rank == 0:
+        print(text, file=sys.stderr, flush=True)
 
 
 def _hyperparams(args, img1, img2, label_values, ignored_labels):
@@ -237,8 +289,17 @@ def run_serve(args, in_stream=None, out_stream=None,
     """Build the model once, load ``--restore`` into it strictly (or
     ``state_dict``; the seeded random init of ``--seed`` without either)
     before it goes to ``--device``, then answer JSON-line requests until
-    EOF or quit. Returns the number of requests served."""
-    device = _device(args.device)
+    EOF or quit, on every rank of the mesh where one engages (this process
+    reads the requests and answers). Returns the number of requests
+    served."""
+    return _on_mesh(args, _serve, args, state_dict,
+                    here={"in_stream": in_stream or sys.stdin,
+                          "out_stream": out_stream or sys.stdout})
+
+
+def _serve(mesh, args, state_dict, in_stream=None, out_stream=None) -> int:
+    """:func:`run_serve` on one rank of ``mesh`` (or without one)."""
+    device = mesh.device if mesh is not None else _device(args.device)
     (img1, img2, gt, label_values, ignored_labels, rgb_bands,
      palette) = get_dataset(args.dataset, args.folder)
     model, spec, hp = get_model(args.model, **_hyperparams(
@@ -252,17 +313,15 @@ def run_serve(args, in_stream=None, out_stream=None,
         model.load_state_dict(state_dict, strict=True)
     else:
         init_parameters(model, args.seed)
-        print("# --serve without --restore: serving an UNTRAINED {}".format(
-            args.model), file=sys.stderr, flush=True)
+        _say(mesh, "# --serve without --restore: serving an UNTRAINED "
+             "{}".format(args.model))
     model.to(device).eval()
 
     server = SceneServer(model, hp, ignored_labels=ignored_labels,
-                         chunk=args.infer_chunk)
-    print('# ready: {} on {} ({}) — one JSON request per line, '
-          '{{"cmd": "quit"}} ends'.format(args.model, args.dataset, device),
-          file=sys.stderr, flush=True)
-    return server.loop(in_stream or sys.stdin, out_stream or sys.stdout,
-                       img1, img2)
+                         chunk=args.infer_chunk, mesh=mesh)
+    _say(mesh, '# ready: {} on {} ({}) — one JSON request per line, '
+         '{{"cmd": "quit"}} ends'.format(args.model, args.dataset, device))
+    return server.loop(in_stream, out_stream, img1, img2)
 
 
 def _load_gt_pair(train_set: Optional[str], test_set: Optional[str],
@@ -289,18 +348,22 @@ def _load_gt_pair(train_set: Optional[str], test_set: Optional[str],
 
 
 class _Setup:
-    """What every run of :func:`run_experiments` shares: the device, the
-    scene, the palette, the artifact writer (which has written the scene's
-    own artifacts) and the command line's hyperparameters."""
+    """What every run of :func:`run_experiments` shares: the mesh and the
+    device, the scene, the palette, the artifact writer (which has written
+    the scene's own artifacts; rank 0's alone writes) and the command
+    line's hyperparameters."""
 
-    def __init__(self, args):
-        self.device = _device(args.device)
+    def __init__(self, args, mesh=None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else \
+            _device(args.device)
         (self.img1, self.img2, self.gt, self.label_values,
          self.ignored_labels, rgb_bands, palette) = get_dataset(
             args.dataset, args.folder)
         self.palette = palette or build_palette(len(self.label_values))
         self.writer = ArtifactWriter(os.path.join(
-            args.out_dir, "{}_{}".format(args.dataset, args.model)))
+            args.out_dir, "{}_{}".format(args.dataset, args.model)),
+            enabled=mesh is None or mesh.rank == 0)
         self.writer.save_dataset_rgb(self.img1, rgb_bands)
         self.writer.save_lidar(self.img2)
         self.writer.save_map(convert_to_color(self.gt, self.palette),
@@ -331,9 +394,15 @@ def run_train(args, state_dict: Optional[Dict[str, torch.Tensor]] = None,
     ``state_dict``, else the seeded random init of the model seed; then
     ``--restore`` over it), train on ``--device`` writing the checkpoint
     files, map the scene with the best weights in a model of their own,
-    score it against the test split, write the artifacts and the report.
-    Prints one JSON line on stdout and returns it as a dict."""
-    return _run(args, state_dict, run, _Setup(args))[0]
+    score it against the test split, write the artifacts and the report,
+    on every rank of the mesh where one engages. Prints one JSON line on
+    stdout and returns it as a dict."""
+    return _on_mesh(args, _train_one, args, state_dict, run)
+
+
+def _train_one(mesh, args, state_dict, run: int) -> Dict:
+    """:func:`run_train` on one rank of ``mesh`` (or without one)."""
+    return _run(args, state_dict, run, _Setup(args, mesh))[0]
 
 
 def _run(args, state_dict, run: int, setup: _Setup):
@@ -341,17 +410,17 @@ def _run(args, state_dict, run: int, setup: _Setup):
     run's metrics dict)."""
     img1, img2, gt = setup.img1, setup.img2, setup.gt
     n_classes = len(setup.label_values)
-    writer, palette = setup.writer, setup.palette
+    writer, palette, mesh = setup.writer, setup.palette, setup.mesh
+    lead = mesh is None or mesh.rank == 0
     model_seed, split_seed = _run_seeds(args, run)
     seed_everything(model_seed)
     train_gt, test_gt = _load_gt_pair(
         args.train_set, args.test_set, gt, args.sampling_mode,
         args.training_sample, split_seed=split_seed)
-    print("{} samples selected (over {})".format(
-        np.count_nonzero(train_gt), np.count_nonzero(gt)),
-        file=sys.stderr, flush=True)
-    print("Running an experiment with the {} model run {}/{}".format(
-        args.model, run + 1, args.runs), file=sys.stderr, flush=True)
+    _say(mesh, "{} samples selected (over {})".format(
+        np.count_nonzero(train_gt), np.count_nonzero(gt)))
+    _say(mesh, "Running an experiment with the {} model run {}/{}".format(
+        args.model, run + 1, args.runs))
     writer.save_map(convert_to_color(train_gt, palette),
                     "Train ground truth", run=run)
     writer.save_map(convert_to_color(test_gt, palette), "Test ground truth",
@@ -391,9 +460,9 @@ def _run(args, state_dict, run: int, setup: _Setup):
                               strict=True)
     model.to(device)
     trainer = Trainer(model, hp, pipe, val_pipeline=val_pipe,
-                      seed=model_seed, savename=args.model)
+                      seed=model_seed, savename=args.model, mesh=mesh)
 
-    trace = args.profile_dir and run == 0
+    trace = args.profile_dir and run == 0 and lead
     prof = profiling.start_trace(args.profile_dir) if trace else None
 
     def on_epoch_end(epoch, loss, metric):
@@ -421,7 +490,8 @@ def _run(args, state_dict, run: int, setup: _Setup):
     if args.debug_nans:
         nancheck.watch(served)
     probabilities = full_scene_probabilities(served, img1, img2, hp,
-                                             chunk=args.infer_chunk)
+                                             chunk=args.infer_chunk,
+                                             mesh=mesh)
     prediction = np.argmax(probabilities, axis=-1)
     run_metrics = metrics(prediction, test_gt,
                           ignored_labels=hp["ignored_labels"],
@@ -434,9 +504,10 @@ def _run(args, state_dict, run: int, setup: _Setup):
     writer.save_map(convert_to_color(prediction, palette),
                     "Prediction run{}".format(run))
     writer.save_confusion_matrix(run_metrics["Confusion matrix"], run=run)
-    writer.save_report(show_results(run, run_metrics,
-                                    label_values=setup.label_values,
-                                    file=sys.stderr))
+    if lead:
+        writer.save_report(show_results(run, run_metrics,
+                                        label_values=setup.label_values,
+                                        file=sys.stderr))
 
     log = trainer.log
     result = {
@@ -451,7 +522,8 @@ def _run(args, state_dict, run: int, setup: _Setup):
         "best_checkpoint": trainer.best_checkpoint,
         "final_checkpoint": trainer.final_checkpoint,
     }
-    print(json.dumps(result), flush=True)
+    if lead:
+        print(json.dumps(result), flush=True)
     return result, run_metrics
 
 
@@ -459,12 +531,17 @@ def run_experiments(args, state_dict: Optional[Dict[str, torch.Tensor]] = None
                     ) -> List[Dict]:
     """The reference's run loop (ref: main.py:377-552): ``--runs`` runs of
     :func:`run_train`, then with more than one the aggregated report and
-    one JSON line with the mean and std of OA, AA and Kappa. Returns the
-    runs' result dicts."""
-    setup = _Setup(args)
+    one JSON line with the mean and std of OA, AA and Kappa, on every rank
+    of the mesh where one engages. Returns the runs' result dicts."""
+    return _on_mesh(args, _experiments, args, state_dict)
+
+
+def _experiments(mesh, args, state_dict) -> List[Dict]:
+    """:func:`run_experiments` on one rank of ``mesh`` (or without one)."""
+    setup = _Setup(args, mesh)
     results, all_metrics = zip(*[_run(args, state_dict, run, setup)
                                  for run in range(args.runs)])
-    if args.runs > 1:
+    if args.runs > 1 and (mesh is None or mesh.rank == 0):
         setup.writer.save_report(show_results(
             args.runs - 1, list(all_metrics),
             label_values=setup.label_values,

@@ -18,6 +18,15 @@ model_utils.py:1127-1131).
 A PCA model's HSI is reduced on the host once per scene and kept PCA'd
 in the :class:`SceneCache` (the JAX package reduces it again on every
 request).
+
+Under a mesh (:mod:`..parallel.mesh`, every rank calling with the same
+scene) the work splits as the JAX package splits it, with no
+communication until the end: at stride 1 the bands go in groups of
+``rows * n`` origin rows (the scene padded to a multiple of that), rank r
+taking band r of each group; at stride > 1 rank r takes every n-th
+chunk of origins. Each rank adds its windows into a zero-filled map and
+one all-reduce sums the maps: every pixel gets its windows from one rank
+only, so the sum is the world-size-1 map.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch
 
 from ..data.normalize import apply_pca
 from ..nn.precision import bf16_apply
+from ..parallel.mesh import Mesh
 
 
 class SceneCache:
@@ -105,7 +115,8 @@ def gather_windows(img: torch.Tensor, origins: torch.Tensor,
 
 def per_origin_map(apply_fn, scene1: torch.Tensor, scene2: torch.Tensor,
                    patch_size: int, n_classes: int, step: int,
-                   chunk: int) -> torch.Tensor:
+                   chunk: int, rank: int = 0,
+                   world_size: int = 1) -> torch.Tensor:
     """The (H, W, K) float32 map of the generic path (JAX
     ``_chunk_scatter_fn``): the origins of ``sliding_window_origins`` at
     ``step``, padded to a multiple of ``chunk`` with origin (0, 0) and
@@ -113,7 +124,8 @@ def per_origin_map(apply_fn, scene1: torch.Tensor, scene2: torch.Tensor,
     logits, times ``valid``, add into its center pixel. The add
     accumulates repeated indices (``index_add_`` on the flattened map):
     when the scene fits in one chunk, the padding shares a scatter with
-    the real origin (0, 0)."""
+    the real origin (0, 0). Of ``world_size`` ranks, rank ``rank`` maps
+    chunks rank, rank + world_size, ... only."""
     h, w = scene1.shape[:2]
     device = scene1.device
     p = patch_size
@@ -128,7 +140,7 @@ def per_origin_map(apply_fn, scene1: torch.Tensor, scene2: torch.Tensor,
     centers = (origins[:, 0] + p // 2) * w + origins[:, 1] + p // 2
     probs = torch.zeros((h * w, n_classes), dtype=torch.float32,
                         device=device)
-    for i in range(0, n + rem, chunk):
+    for i in range(rank * chunk, n + rem, chunk * world_size):
         o = origins[i:i + chunk]
         out = apply_fn(gather_windows(scene1, o, p),
                        gather_windows(scene2, o, p))
@@ -152,8 +164,8 @@ def band_patches(band: torch.Tensor, rows: int, patch_size: int):
 def full_scene_probabilities(model: torch.nn.Module, img1: np.ndarray,
                              img2: np.ndarray, hyperparams: Dict,
                              chunk: int = 8192,
-                             cache: Optional[SceneCache] = None
-                             ) -> np.ndarray:
+                             cache: Optional[SceneCache] = None,
+                             mesh: Optional[Mesh] = None) -> np.ndarray:
     """Class-score map (H, W, n_classes) of ``model`` (eval mode) over a
     scene, on the model's device. A model that returns a tuple (GLT_Net's
     ``(logits, con_loss)``) contributes its first entry.
@@ -164,7 +176,8 @@ def full_scene_probabilities(model: torch.nn.Module, img1: np.ndarray,
     model's own ``pca_components`` (the reference hardcodes 3,
     QUIRKS.md), memoised in ``cache``. ``hyperparams["test_stride"]``
     (default 1) above 1 takes the per-origin path. The map comes back to
-    the host as a numpy array."""
+    the host as a numpy array. With ``mesh`` every rank calls with the
+    same arguments, maps its share and gets the whole map."""
     patch_size = int(hyperparams["patch_size"])
     n_classes = int(hyperparams["n_classes"])
     step = int(hyperparams.get("test_stride", 1))
@@ -180,16 +193,21 @@ def full_scene_probabilities(model: torch.nn.Module, img1: np.ndarray,
            if hyperparams.get("applyPCA") else 0)
     scene1 = cache.get(img1, dtype, device, pca)
     scene2 = cache.get(img2, dtype, device)
+    rank, n_dev = (mesh.rank, mesh.world_size) if mesh is not None else \
+        (0, 1)
     if step > 1:
-        return per_origin_map(apply_fn, scene1, scene2, patch_size,
-                              n_classes, step, chunk).cpu().numpy()
+        probs = per_origin_map(apply_fn, scene1, scene2, patch_size,
+                               n_classes, step, chunk, rank, n_dev)
+        if mesh is not None:
+            mesh.sum_(probs)
+        return probs.cpu().numpy()
 
     h, w = scene1.shape[:2]
     p = patch_size
     total = h - p + 1                       # origin rows
     wc = w - p + 1
     rows = max(1, min(total, chunk // max(wc, 1)))
-    t_pad = -total % rows
+    t_pad = -total % (rows * n_dev)         # whole groups of n_dev bands
     if t_pad:
         scene1 = torch.cat([scene1, scene1.new_zeros(
             (t_pad,) + tuple(scene1.shape[1:]))])
@@ -198,7 +216,7 @@ def full_scene_probabilities(model: torch.nn.Module, img1: np.ndarray,
     probs = torch.zeros((h + t_pad, w, n_classes), dtype=torch.float32,
                         device=device)
     row_ids = torch.arange(rows, device=device)
-    for x0 in range(0, total + t_pad, rows):
+    for x0 in range(rank * rows, total + t_pad, rows * n_dev):
         band1 = scene1[x0:x0 + rows + p - 1]
         band2 = scene2[x0:x0 + rows + p - 1]
         out = apply_fn(band_patches(band1, rows, p),
@@ -209,4 +227,6 @@ def full_scene_probabilities(model: torch.nn.Module, img1: np.ndarray,
         valid = (x0 + row_ids < total).float()
         probs[x0 + p // 2:x0 + p // 2 + rows, p // 2:p // 2 + wc] += \
             block * valid[:, None, None]
+    if mesh is not None:
+        mesh.sum_(probs)
     return probs[:h].cpu().numpy()

@@ -19,6 +19,12 @@ Response: {"ok": true, "seconds": ..., "shape": [...], "uploads": n, ...}
 or {"ok": false, "error": "..."}; ``uploads`` counts the scenes this
 request put on the device (0: every scene was resident, a PCA model's
 reduced HSI included).
+
+Under a mesh (:mod:`..parallel.mesh`) every rank holds the model and
+runs :meth:`SceneServer.loop`: rank 0 reads each request line and
+broadcasts it (end of input as None), every rank maps its share of the
+scene (infer/fullscene.py), and only rank 0 writes the ``out`` / ``pred``
+files and answers. ``quit`` and the end of input end every rank.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 
 from ..data.io import load_mat_key, open_file
 from ..metrics import metrics
+from ..parallel.mesh import Mesh
 from .fullscene import SceneCache, full_scene_probabilities
 
 #: host scene arrays a server keeps (least recently used first out): one
@@ -70,8 +77,11 @@ class SceneServer:
     (mtime or size) is loaded anew."""
 
     def __init__(self, model: torch.nn.Module, hyperparams: Dict,
-                 ignored_labels=(), chunk: int = 8192):
+                 ignored_labels=(), chunk: int = 8192,
+                 mesh: Optional[Mesh] = None):
         self.model = model
+        self.mesh = mesh
+        self.rank = mesh.rank if mesh is not None else 0
         self.hp = dict(hyperparams)
         self.ignored_labels = list(ignored_labels)
         self.chunk = chunk
@@ -105,7 +115,8 @@ class SceneServer:
         if stride is not None:
             hp = dict(hp, test_stride=int(stride))
         return full_scene_probabilities(self.model, img1, img2, hp,
-                                        chunk=self.chunk, cache=self.cache)
+                                        chunk=self.chunk, cache=self.cache,
+                                        mesh=self.mesh)
 
     def handle(self, req: Dict, default_img1: np.ndarray,
                default_img2: np.ndarray) -> Dict:
@@ -116,6 +127,8 @@ class SceneServer:
         probs = self.serve(img1, img2, req.get("stride"))
         resp: Dict = {"ok": True, "shape": list(probs.shape),
                       "uploads": self.cache.uploads - uploads}
+        if self.rank != 0:
+            return resp
         if req.get("out"):
             np.save(req["out"], probs)
             resp["out"] = req["out"]
@@ -133,19 +146,37 @@ class SceneServer:
         resp["seconds"] = round(time.time() - t0, 3)
         return resp
 
-    def loop(self, in_stream: TextIO, out_stream: TextIO,
+    def _lines(self, in_stream: Optional[TextIO]):
+        """The request lines: ``in_stream``'s, and under a mesh rank 0's
+        broadcast to every rank (``in_stream`` is read on rank 0 only)."""
+        if self.mesh is None:
+            yield from in_stream
+            return
+        lines = iter(in_stream) if self.rank == 0 else None
+        while True:
+            line = next(lines, None) if self.rank == 0 else None
+            line = self.mesh.broadcast_object(line)
+            if line is None:
+                return
+            yield line
+
+    def loop(self, in_stream: Optional[TextIO], out_stream: Optional[TextIO],
              default_img1: np.ndarray, default_img2: np.ndarray) -> int:
-        """Read JSON-line requests until EOF / cmd=quit; returns count."""
+        """Read JSON-line requests until EOF / cmd=quit; returns count.
+        Under a mesh, ``in_stream`` and ``out_stream`` are rank 0's (None
+        on the others)."""
         served = 0
-        for line in in_stream:
+        say = (lambda resp: print(json.dumps(resp), file=out_stream,
+                                  flush=True)) if self.rank == 0 else \
+            (lambda resp: None)
+        for line in self._lines(in_stream):
             line = line.strip()
             if not line:
                 continue
             try:
                 req = json.loads(line)
             except json.JSONDecodeError as e:
-                print(json.dumps({"ok": False, "error": "bad json: {}".format(
-                    e)}), file=out_stream, flush=True)
+                say({"ok": False, "error": "bad json: {}".format(e)})
                 continue
             if req.get("cmd") == "quit":
                 break
@@ -155,5 +186,5 @@ class SceneServer:
             except Exception as e:               # keep the server alive
                 resp = {"ok": False, "error": "{}: {}".format(
                     type(e).__name__, str(e)[:300])}
-            print(json.dumps(resp), file=out_stream, flush=True)
+            say(resp)
         return served

@@ -36,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..nn.layers import ChannelLastBatchNorm, Conv, Dense
+from ..parallel.mesh import gather_rows
 
 
 class BatchStatsNorm(ChannelLastBatchNorm):
@@ -106,7 +107,9 @@ def moco_forward(encoder: nn.Module, moco: MoCoState, x1_v1, x1_v2, x2_v1,
     over every entry, and the key is view 2 through them, without
     gradient. The logits are ``[l_pos, l_neg] / temperature`` with
     target 0, and every row of ``k`` (the padded rows of a last batch
-    too) goes into the queue at the pointer."""
+    too) goes into the queue at the pointer: under an engaged mesh
+    (:mod:`..parallel.mesh`) every rank's keys, in batch order, and the
+    returned ``k`` is the global batch's."""
     q = _unit(encoder(x1_v1, x2_v1))
     with torch.no_grad():
         online = encoder.state_dict()
@@ -119,7 +122,9 @@ def moco_forward(encoder: nn.Module, moco: MoCoState, x1_v1, x1_v2, x2_v1,
     logits = torch.cat([l_pos, l_neg], dim=1) / temperature
     target = torch.zeros(q.shape[0], dtype=torch.long, device=q.device)
 
-    # dynamic_update_slice: the start clamps so that the rows fit
+    # dynamic_update_slice: the start clamps so that the rows fit; under
+    # an engaged mesh the global batch's keys, in batch order
+    k = gather_rows(k)
     size, b = moco.queue.shape[0], k.shape[0]
     start = min(moco.queue_ptr, size - b)
     queue = torch.cat([moco.queue[:start], k, moco.queue[start + b:]])

@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops._build import wide
+from ..parallel import mesh
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator):
@@ -188,6 +189,11 @@ class ChannelLastBatchNorm(nn.Module):
     ``zero_scale`` starts the scale at zero (NonLocal's output BN). A
     subclass with ``updates_statistics`` False normalises a train-mode
     batch with its statistics and leaves the running ones as they are.
+    Under an engaged mesh (:mod:`..parallel.mesh`) the statistics are the
+    global batch's, as in the JAX step's one program over the sharded
+    batch: sum(x), sum(x^2) and the count summed over the ranks (not
+    torch's ``SyncBatchNorm``, whose running variance is the unbiased
+    one); the running statistics come out equal on every rank.
     """
 
     eps = 1e-5
@@ -213,8 +219,20 @@ class ChannelLastBatchNorm(nn.Module):
         xf = x.to(f)
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0)
+            if mesh.current() is None:
+                mean = xf.mean(dim=axes)
+                var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0)
+            else:
+                # the global batch's statistics: the sums of x and x^2 and
+                # the count, summed over the ranks (one differentiable
+                # all-reduce; the fast variance needs no second one)
+                c = x.shape[-1]
+                count = torch.full((1,), float(xf.numel() // max(c, 1)),
+                                   dtype=f, device=x.device)
+                sums = mesh.global_sum(torch.cat([
+                    xf.sum(dim=axes), (xf * xf).sum(dim=axes), count]))
+                mean = sums[:c] / sums[-1]
+                var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0)
             if self.updates_statistics:
                 with torch.no_grad():
                     self.running_mean.copy_(

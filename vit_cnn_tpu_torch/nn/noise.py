@@ -13,6 +13,13 @@ seed of its own (:data:`FALLBACK_SEED`), as the JAX layer falls back to
 ``PRNGKey(0)`` when no 'shuffle' stream is given: the same permutation on
 every such call, though not the one JAX draws (no threefry here).
 
+Under an engaged mesh (:mod:`..parallel.mesh`) the source is replicated:
+every rank draws the same numbers. A uniform is batch-leading (the
+Gumbel noise of MHST, every dropout mask) and is drawn at the global
+batch, each rank keeping its rows; a permutation is drawn whole on every
+rank (one order for the whole batch). A future uniform whose first axis
+is not the batch has to say so and draw otherwise.
+
 :class:`Dropout` is flax's ``nn.Dropout``: keep ~ Bernoulli(1 - rate)
 (a uniform below 1 - rate), then ``x / (1 - rate)`` where kept and 0
 elsewhere; the identity in eval mode or at rate 0, zeros at rate 1. It
@@ -27,6 +34,8 @@ from typing import Callable, List, Sequence, Union
 
 import torch
 import torch.nn as nn
+
+from ..parallel import mesh
 
 Source = Union[torch.Generator, Callable]
 #: the seed of a permutation drawn outside ``drawing``
@@ -57,15 +66,21 @@ def affine(u: torch.Tensor, low: float, high: float) -> torch.Tensor:
 def uniform(shape: Sequence[int], device, low: float = 0.0,
             high: float = 1.0) -> torch.Tensor:
     """float32 uniforms in [low, high) of ``shape`` on ``device`` from the
-    current source."""
+    current source. ``shape`` leads with the batch: under an engaged mesh
+    the draw is made at the global batch, (n*b, ...), and this rank's rows
+    are returned, the world-size-1 draw's rows bit for bit."""
     source = _source.get()
     if source is None:
         raise RuntimeError("a train-mode draw of the zoo (dropout or Gumbel "
                            "noise) outside noise.drawing(generator)")
+    shape = tuple(shape)
+    full = (shape[0] * mesh.world_size(),) + shape[1:]
     if isinstance(source, torch.Generator):
-        return affine(torch.rand(tuple(shape), generator=source,
-                                  device=device), low, high)
-    return source(tuple(shape), device, low, high)
+        u = affine(torch.rand(full, generator=source, device=device), low,
+                   high)
+    else:
+        u = source(full, device, low, high)
+    return mesh.shard_rows(u)
 
 
 def permutation(n: int, device) -> torch.Tensor:

@@ -38,6 +38,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel import mesh
+
 from ..nn.noise import affine
 
 #: per-sample probabilities of the two noises (ref: datasets.py:699-707)
@@ -165,6 +167,14 @@ def mixture_noise(data: torch.Tensor, label_patch: torch.Tensor,
     return (a1 * data + a2 * partner) / (a1 + a2) + beta * noise
 
 
+def batch_codes(generator: torch.Generator, batch: int) -> torch.Tensor:
+    """:func:`sample_geom_code` for a batch of ``batch`` local centers:
+    drawn at the global batch under an engaged mesh, this rank's rows
+    kept."""
+    return mesh.shard_rows(sample_geom_code(generator,
+                                            batch * mesh.world_size()))
+
+
 @dataclasses.dataclass(frozen=True)
 class AugmentConfig:
     flip: bool = False
@@ -253,6 +263,15 @@ class PatchPipeline:
                              tuple(shape), generator=g, device=dev))
         return draws
 
+    def batch_noise(self, generator: torch.Generator,
+                    shape: Sequence[int]) -> Dict[str, torch.Tensor]:
+        """:meth:`draw_noise` for a local batch of ``shape``: drawn at the
+        global batch under an engaged mesh, each draw cut to this rank's
+        rows (after ``draw_noise`` every draw leads with the batch)."""
+        full = (shape[0] * mesh.world_size(),) + tuple(shape[1:])
+        return {k: mesh.shard_rows(v)
+                for k, v in self.draw_noise(generator, full).items()}
+
     def add_noise(self, generator: Optional[torch.Generator],
                   p1: torch.Tensor, label_patch: torch.Tensor,
                   draws: Optional[Dict[str, torch.Tensor]] = None
@@ -265,7 +284,7 @@ class PatchPipeline:
         if not (cfg.radiation or cfg.mixture):
             return p1
         if draws is None:
-            draws = self.draw_noise(generator, p1.shape)
+            draws = self.batch_noise(generator, p1.shape)
         if cfg.radiation:
             gate = (draws["radiation_gate"] < RADIATION_P).view(-1, 1, 1, 1)
             p1 = torch.where(gate, radiation_noise(
@@ -293,7 +312,7 @@ class PatchPipeline:
         offsets = None
         if train and self.augment_cfg.flip and p > 1:
             if codes is None:
-                codes = sample_geom_code(generator, centers.shape[0])
+                codes = batch_codes(generator, centers.shape[0])
             offsets = (self._grids[0][codes], self._grids[1][codes])
         p1 = gather_patches(self.scene1, centers, p, offsets)
         p2 = gather_patches(self.scene2, centers, p, offsets)

@@ -17,8 +17,8 @@ from typing import Dict, Optional
 
 import torch
 
-from .patches import (AugmentConfig, PatchPipeline, gather_patches,
-                      sample_geom_code)
+from .patches import (AugmentConfig, PatchPipeline, batch_codes,
+                      gather_patches)
 
 
 class TwoViewPipeline(PatchPipeline):
@@ -38,7 +38,9 @@ class TwoViewPipeline(PatchPipeline):
                    draws: Optional[Dict[str, torch.Tensor]] = None):
         """The two views of a batch of centers and the raw center labels.
         ``codes`` and ``draws`` give view 2's flip/rotate codes and noise
-        draws explicitly instead of drawing them from ``generator``."""
+        draws explicitly instead of drawing them from ``generator``;
+        under an engaged mesh ``centers`` are the rank's rows and the
+        draws the global batch's rows (pipeline/patches.py)."""
         p = self.patch_size
         v1_1 = gather_patches(self.scene1, centers, p)
         v2_1 = gather_patches(self.scene2, centers, p)
@@ -46,7 +48,7 @@ class TwoViewPipeline(PatchPipeline):
         v1_2, v2_2, lp_2 = v1_1, v2_1, lp
         if self.augment_cfg.flip and p > 1:
             if codes is None:
-                codes = sample_geom_code(generator, centers.shape[0])
+                codes = batch_codes(generator, centers.shape[0])
             offsets = (self._grids[0][codes], self._grids[1][codes])
             v1_2 = gather_patches(self.scene1, centers, p, offsets)
             v2_2 = gather_patches(self.scene2, centers, p, offsets)

@@ -7,6 +7,7 @@
   python -m vit_cnn_tpu_torch.tools.heads_attn_variants # K8's variants
   python -m vit_cnn_tpu_torch.tools.scan_ab OTHER.cu    # old K1 vs V1 (8, 8)
   python -m vit_cnn_tpu_torch.tools.kernel_ablation KIND A.cu ... # K1-K7 copies
+  python -m vit_cnn_tpu_torch.tools.mesh_check --ranks 4   # the mesh, 4 cards
 
 The first three build their models as ``chip_smoke.py`` does: at
 Houston2013 width on the Synthetic scene at 349 x 1905, with the seeded

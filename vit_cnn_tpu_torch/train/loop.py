@@ -25,6 +25,19 @@ write and read the whole train state: model, optimizer moments, step,
 the shuffle's RandomState and the device generator (the augmentation's
 and the noise's). With ``hyperparams["debug_nans"]`` the step stops at
 the first NaN, as ``jax_debug_nans`` does (:mod:`..utils.nancheck`).
+
+With ``mesh`` (:mod:`..parallel.mesh`, every rank running the same
+Trainer) the step is data parallel, as the JAX Trainer's over its
+``data`` mesh: each rank gathers its rows of the global batch of centers
+(a batch size the ranks do not divide raises), the draws, BatchNorm's
+statistics and the loss's denominators are the global batch's, and after
+the backward (and the zero-filling of unreached gradients) the gradients
+are summed over the ranks, so every rank takes the same optimizer step.
+The generator, the shuffle's RandomState and the model stay replicated
+(rank 0's model is broadcast at the start); the epoch loss is the global
+one; validation runs whole on every rank, so every rank picks the same
+best epoch. Only rank 0 writes the best, final and resumable files and
+prints; every rank can restore a resumable file.
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ import torch
 from ..convert import state_dict_to_flax
 from ..nn import noise
 from ..nn.precision import bf16_train_apply
+from ..parallel import mesh as mesh_lib
 from ..pipeline.patches import PatchPipeline
 from ..utils import nancheck
 from . import checkpoint as ckpt
@@ -85,7 +99,8 @@ class Trainer:
                  pipeline: PatchPipeline,
                  val_pipeline: Optional[PatchPipeline] = None,
                  seed: int = 0, checkpoint_root: str = "./checkpoints",
-                 savename: str = "", save_checkpoints: bool = True):
+                 savename: str = "", save_checkpoints: bool = True,
+                 mesh: Optional[mesh_lib.Mesh] = None):
         self.checkpoint_root = checkpoint_root
         self.savename = savename
         self.save_checkpoints = save_checkpoints
@@ -110,6 +125,13 @@ class Trainer:
                 pipeline.device, self.device))
 
         self.batch_size = int(hyperparams["batch_size"])
+        self.mesh = mesh
+        self.rank = mesh.rank if mesh is not None else 0
+        if mesh is not None and self.batch_size % mesh.world_size:
+            raise ValueError("batch size {} does not split over {} "
+                             "ranks".format(self.batch_size,
+                                            mesh.world_size))
+        mesh_lib.broadcast_module(model, mesh)
         self.epochs = int(hyperparams["epoch"])
         self.loss_fn = LOSSES[loss]
         self.class_weights = torch.as_tensor(
@@ -146,26 +168,31 @@ class Trainer:
     # ------------------------------------------------------------------
     def _step(self, centers: torch.Tensor, valid: torch.Tensor,
               loss_sum: torch.Tensor) -> torch.Tensor:
-        """One optimizer step on ``centers`` (device int tensor); returns
-        ``loss_sum`` plus this step's loss, on the device."""
-        p1, p2, labels = self.pipeline.make_batch(self.generator, centers,
-                                                  train=True)
-        self.model.train()
-        with noise.drawing(self.noise):
-            out = self._forward(p1, p2)
-        loss = self.loss_fn(out, labels, self.class_weights, valid)
-        self.optimizer.zero_grad(set_to_none=True)
-        if self.debug_nans:
-            nancheck.check(loss, "the loss")
-            nancheck.backward(loss)
-        else:
-            loss.backward()
+        """One optimizer step on the global batch ``centers`` (device int
+        tensor); returns ``loss_sum`` plus this step's loss (under a mesh,
+        this rank's share of it), on the device."""
+        with mesh_lib.engaged(self.mesh):
+            centers = mesh_lib.shard_rows(centers)
+            valid = mesh_lib.shard_rows(valid)
+            p1, p2, labels = self.pipeline.make_batch(self.generator,
+                                                      centers, train=True)
+            self.model.train()
+            with noise.drawing(self.noise):
+                out = self._forward(p1, p2)
+            loss = self.loss_fn(out, labels, self.class_weights, valid)
+            self.optimizer.zero_grad(set_to_none=True)
+            if self.debug_nans:
+                nancheck.check(loss, "the loss")
+                nancheck.backward(loss)
+            else:
+                loss.backward()
         for p in self.model.parameters():
             if p.grad is None:
                 # a parameter the loss does not reach (S2EFT's gate conv,
                 # behind its hard gate) gets a zero gradient, as jax.grad
                 # gives it, so the optimizer steps every parameter
                 p.grad = torch.zeros_like(p)
+        mesh_lib.all_reduce_grads(self.model, self.mesh)
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.steps_done)
         self.optimizer.step()
@@ -215,8 +242,13 @@ class Trainer:
                             int(rng_state[2]), int(rng_state[3]),
                             float(rng_state[4])],
                  "generator": self.generator.get_state().tolist()}
-        return ckpt.save_train_state(path, self.model, self.optimizer,
-                                     self.steps_done, extra)
+        if self.rank == 0:
+            path = ckpt.save_train_state(path, self.model, self.optimizer,
+                                         self.steps_done, extra)
+        if self.mesh is not None:
+            # the file is written before any rank reads it
+            path = self.mesh.broadcast_object(path)
+        return path
 
     def restore_resumable(self, path: str) -> int:
         """Returns the epoch to resume FROM (0 without metadata)."""
@@ -232,7 +264,9 @@ class Trainer:
         return int(extra["epoch"])
 
     def _save(self, state: Dict[str, torch.Tensor], kind: str, run: int,
-              dataset_name: str, epoch: int, metric: float) -> str:
+              dataset_name: str, epoch: int, metric: float) -> Optional[str]:
+        if self.rank != 0:
+            return None
         return ckpt.save_checkpoint(
             state_dict_to_flax(self.model, state), self.checkpoint_root,
             type(self.model).__name__.lower(), dataset_name, "train", kind,
@@ -265,6 +299,8 @@ class Trainer:
                 loss_sum = self._step(centers_all[i:i + bs],
                                       valid_all[i:i + bs], loss_sum)
                 n_steps += 1
+            if self.mesh is not None:
+                self.mesh.sum_(loss_sum)          # the ranks' shares
             avg_loss = float(loss_sum) / n_steps if n_steps else 0.0
             self.log.losses.append(avg_loss)
 
@@ -274,7 +310,7 @@ class Trainer:
             else:
                 metric = -avg_loss
             self.log.epoch_seconds.append(time.time() - t0)
-            if log_every and epoch % log_every == 0:
+            if log_every and epoch % log_every == 0 and self.rank == 0:
                 secs = self.log.epoch_seconds[-1]
                 print("epoch {}/{} loss {:.4f} val {:.4f} ({:.2f}s, {:.0f} "
                       "patches/s)".format(

@@ -4,6 +4,12 @@ Port of :mod:`vit_cnn_tpu.train.losses`: torch.nn.CrossEntropyLoss(
 weight=w) semantics with a per-sample ``valid`` mask, so a padded last
 batch leaves the loss as it is; the multi-output losses of
 Cross_fusion_CNN and EndNet, ``glt`` and ``focal``.
+
+Each is a ratio of sums. Under an engaged mesh (:mod:`..parallel.mesh`)
+each rank takes its own numerator over the global denominator (summed
+over the ranks), so the ranks' losses add up to the global batch's loss
+and their summed gradients are its gradient; a mean over a rank's
+batch becomes its share of the global mean.
 """
 
 from __future__ import annotations
@@ -11,6 +17,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ..parallel.mesh import global_sum, world_size
 
 
 def weighted_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -24,7 +32,7 @@ def weighted_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
          else torch.ones_like(nll))
     if valid is not None:
         w = w * valid
-    return (w * nll).sum() / w.sum().clamp_min(1e-12)
+    return (w * nll).sum() / global_sum(w.sum()).clamp_min(1e-12)
 
 
 def ce_first_output(output, targets, class_weights=None, valid=None):
@@ -39,9 +47,9 @@ def _masked_mse(a: torch.Tensor, b: torch.Tensor,
     divided by max(their count x the features, 1e-12)."""
     se = (a - b) ** 2
     if valid is None:
-        return se.mean()
+        return se.mean() / world_size()
     se = se.reshape(se.shape[0], -1)
-    denom = (valid.sum() * se.shape[1]).clamp_min(1e-12)
+    denom = (global_sum(valid.sum()) * se.shape[1]).clamp_min(1e-12)
     return (se * valid[:, None]).sum() / denom
 
 
@@ -79,19 +87,20 @@ def focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     if valid is not None:
         loss = loss * valid
         if size_average:
-            return loss.sum() / valid.sum().clamp_min(1e-12)
+            return loss.sum() / global_sum(valid.sum()).clamp_min(1e-12)
         return loss.sum()
-    return loss.mean() if size_average else loss.sum()
+    return loss.mean() / world_size() if size_average else loss.sum()
 
 
 def glt_loss(output, targets, class_weights=None, valid=None):
     """GLT_Net's (logits, con_loss): the weighted cross-entropy of the
     logits plus the in-model reconstruction loss (ref: GLT_Net.py:417-422).
     ``valid`` masks the cross-entropy only: con_loss is the model's mean
-    over the whole batch, padded rows included, as in the JAX package."""
+    over the whole batch, padded rows included, as in the JAX package
+    (under a mesh a rank's mean is its share of the global one)."""
     logits, con_loss = output
     return (weighted_cross_entropy(logits, targets, class_weights, valid)
-            + con_loss)
+            + con_loss / world_size())
 
 
 #: the JAX package's LOSSES; the Trainer takes all but ``focal`` (see

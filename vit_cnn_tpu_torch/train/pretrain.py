@@ -16,6 +16,13 @@ epoch-mean loss, compared as ``abs(avg) <= best`` from 100.0, under
 ``pre_train/best_epoch``, and fixed snapshots at epochs 128, 200 and 300
 under ``pre_train/final_epoch``, in the JAX package's file format and
 names (train/checkpoint.py).
+
+With ``mesh`` (:mod:`..parallel.mesh`; the Python API only, as in JAX:
+``--pretrain`` takes no mesh) the step is data parallel as the Trainer's:
+each rank's rows of the global batch, the views' draws and BatchNorm's
+statistics the global batch's, the global keys into the replicated queue,
+the loss's denominator global and the gradients summed. Only rank 0
+writes files and prints.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch.nn.functional as F
 
 from ..convert import state_dict_to_flax
 from ..models.moco import init_moco_state, moco_forward
+from ..parallel import mesh as mesh_lib
 from ..pipeline.twoview import TwoViewPipeline
 from . import checkpoint as ckpt
 from .loop import _host_state, _pad_to_multiple
@@ -63,8 +71,11 @@ class Pretrainer:
                  momentum: float = 0.999, temperature: float = 0.07,
                  embed_dim: int = 128, seed: int = 0,
                  checkpoint_root: str = "./checkpoints", savename: str = "",
-                 save_checkpoints: bool = True):
+                 save_checkpoints: bool = True,
+                 mesh: Optional[mesh_lib.Mesh] = None):
         self.encoder = encoder
+        self.mesh = mesh
+        self.rank = mesh.rank if mesh is not None else 0
         self.hp = hyperparams
         self.pipeline = pipeline
         self.momentum = momentum
@@ -79,6 +90,11 @@ class Pretrainer:
                 pipeline.device, self.device))
 
         self.batch_size = int(hyperparams["batch_size"])
+        if mesh is not None and self.batch_size % mesh.world_size:
+            raise ValueError("batch size {} does not split over {} "
+                             "ranks".format(self.batch_size,
+                                            mesh.world_size))
+        mesh_lib.broadcast_module(encoder, mesh)
         self.epochs = int(hyperparams["epoch"])
         self.base_lr = float(hyperparams["lr"])
         queue_size = -(-queue_size // self.batch_size) * self.batch_size
@@ -99,24 +115,31 @@ class Pretrainer:
             self.encoder, self.moco, *views, momentum=self.momentum,
             temperature=self.temperature)
         losses = F.cross_entropy(logits, target, reduction="none")
-        return (losses * valid).sum() / valid.sum().clamp_min(1.0)
+        return ((losses * valid).sum()
+                / mesh_lib.global_sum(valid.sum()).clamp_min(1.0))
 
     def _step(self, centers: torch.Tensor, valid: torch.Tensor,
               loss_sum: torch.Tensor, lr: float) -> torch.Tensor:
-        """One optimizer step on ``centers``; returns ``loss_sum`` plus
-        this step's loss, on the device."""
-        views = self.pipeline.make_views(self.generator, centers)[:4]
-        self.encoder.train()
-        loss = self.loss(views, valid)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        """One optimizer step on the global batch ``centers``; returns
+        ``loss_sum`` plus this step's loss (under a mesh, this rank's share
+        of it), on the device."""
+        with mesh_lib.engaged(self.mesh):
+            centers = mesh_lib.shard_rows(centers)
+            views = self.pipeline.make_views(self.generator, centers)[:4]
+            self.encoder.train()
+            loss = self.loss(views, mesh_lib.shard_rows(valid))
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        mesh_lib.all_reduce_grads(self.encoder, self.mesh)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
         return loss_sum + loss.detach()
 
     def _save(self, state, kind: str, run: int, dataset_name: str,
-              epoch: int, loss: float) -> str:
+              epoch: int, loss: float) -> Optional[str]:
+        if self.rank != 0:
+            return None
         return ckpt.save_checkpoint(
             state_dict_to_flax(self.encoder, state), self.checkpoint_root,
             type(self.encoder).__name__.lower(), dataset_name, "pre_train",
@@ -141,9 +164,11 @@ class Pretrainer:
                 loss_sum = self._step(centers_all[i:i + bs],
                                       valid_all[i:i + bs], loss_sum, lr)
                 n_steps += 1
+            if self.mesh is not None:
+                self.mesh.sum_(loss_sum)          # the ranks' shares
             avg = float(loss_sum) / max(n_steps, 1)
             self.losses.append(avg)
-            if log_every and e % log_every == 0:
+            if log_every and e % log_every == 0 and self.rank == 0:
                 print("pretrain epoch {}/{} loss {:.4f} lr {:.2e}".format(
                     e, self.epochs, avg, lr), file=sys.stderr, flush=True)
             if abs(avg) <= best_loss:           # <= tie rule, ref :826

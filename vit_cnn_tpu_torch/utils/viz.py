@@ -17,10 +17,15 @@ host has neither PIL nor matplotlib, so the images are made here:
 * ``explore_spectrums`` returns the same dict of per-class mean spectra,
   and writes the curves' numbers (each class's mean and std per band) as
   ``mean_spectrums.json`` in place of the JAX ``mean_spectrums.png``.
+
+Under a mesh only rank 0 writes: the other ranks' writers are made with
+``enabled=False``, and every call of theirs writes nothing and returns
+None.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import struct
@@ -128,15 +133,29 @@ def heatmap(matrix: np.ndarray, cell: Optional[int] = None) -> np.ndarray:
     return np.round(255 * rgb).astype(np.uint8)
 
 
-class ArtifactWriter:
-    """Writes the reference's Visdom surface to ``<out_dir>/``."""
+def _writes(method):
+    """A writing method of :class:`ArtifactWriter`: nothing when the
+    writer is not enabled."""
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        return method(self, *args, **kwargs) if self.enabled else None
+    return wrapped
 
-    def __init__(self, out_dir: str = "./results/artifacts"):
+
+class ArtifactWriter:
+    """Writes the reference's Visdom surface to ``<out_dir>/``; with
+    ``enabled`` False (a mesh rank other than 0), nothing."""
+
+    def __init__(self, out_dir: str = "./results/artifacts",
+                 enabled: bool = True):
         self.out_dir = out_dir
-        os.makedirs(out_dir, exist_ok=True)
+        self.enabled = enabled
+        if enabled:
+            os.makedirs(out_dir, exist_ok=True)
         self._metrics_path = os.path.join(out_dir, "metrics.jsonl")
 
     # -- scalar stream (loss / val-acc curves; ref: model_utils.py:940-974)
+    @_writes
     def log_scalars(self, step: int, scalars: Dict[str, float],
                     run: Optional[int] = None) -> None:
         rec = {"ts": time.time(), "step": step, **scalars}
@@ -146,6 +165,7 @@ class ArtifactWriter:
             f.write(json.dumps(rec) + "\n")
 
     # -- dataset RGB composite (ref: utils.py:169-186 display_dataset)
+    @_writes
     def save_dataset_rgb(self, img: np.ndarray,
                          rgb_bands: Sequence[int]) -> None:
         rgb = np.stack([img[..., b] for b in rgb_bands], axis=-1)
@@ -153,10 +173,12 @@ class ArtifactWriter:
         _save_png(os.path.join(self.out_dir, "dataset_rgb.png"), rgb)
 
     # -- LiDAR grayscale (ref: utils.py:189-198 display_lidar_data)
+    @_writes
     def save_lidar(self, img: np.ndarray) -> None:
         _save_png(os.path.join(self.out_dir, "lidar.png"), img[..., 0])
 
     # -- GT / prediction color maps (ref: utils.py display_predictions)
+    @_writes
     def save_map(self, color_map: np.ndarray, caption: str,
                  run: Optional[int] = None) -> None:
         name = caption.replace(" ", "_").replace(":", "").replace("/", "-")
@@ -165,6 +187,7 @@ class ArtifactWriter:
         _save_png(os.path.join(self.out_dir, name + ".png"), color_map)
 
     # -- per-class mean spectra (ref: utils.py:218-270 explore_spectrums)
+    @_writes
     def explore_spectrums(self, img: np.ndarray, gt: np.ndarray,
                           label_values: Sequence[str],
                           ignored_labels: Sequence[int] = (0,)
@@ -185,6 +208,7 @@ class ArtifactWriter:
         return mean_spectrums
 
     # -- confusion-matrix heatmap (ref: utils.py:676-684)
+    @_writes
     def save_confusion_matrix(self, cm: np.ndarray,
                               run: Optional[int] = None) -> None:
         name = "confusion_matrix" if run is None else \
@@ -193,6 +217,7 @@ class ArtifactWriter:
 
     # -- feature-map viz (ref: model_utils.py:661-679 show_featuremap:
     #    first sample of a (B, C, H, W) activation as an RGB composite)
+    @_writes
     def show_featuremap(self, name: str, fm: np.ndarray,
                         rgb_bands: Sequence[int] = (0, 1, 2)) -> None:
         fm = np.asarray(fm)[0]                        # first sample
@@ -204,6 +229,7 @@ class ArtifactWriter:
                                "featuremap_{}.png".format(name)), rgb)
 
     # -- text report (mirrors what show_results prints)
+    @_writes
     def save_report(self, text: str, name: str = "report.txt") -> None:
         with open(os.path.join(self.out_dir, name), "a") as f:
             f.write(text + "\n")
