@@ -130,7 +130,7 @@ the result lines:
    on freshly drawn rows against their plain versions (their errors join
    phase 2's rows).
 
-13. mesh — run last: the port's mesh (vit_cnn_tpu_torch/parallel/mesh.py)
+13. mesh — run after run_modes: the port's mesh (vit_cnn_tpu_torch/parallel/mesh.py)
    on this one-card host. The default run's mesh has world size 1 (one
    card: off, as in JAX), so every phase above runs as before. Then two
    gloo ranks share the card (``make_mesh(2, "cuda", share=True)``, this
@@ -148,6 +148,14 @@ the result lines:
    name and power limit. Two processes sharing one card say nothing of a
    multi-GPU speed.
 
+14. bench_models — run after the mesh: the per-model table tool
+   (``tools/bench_models.py``, the twin of the JAX package's
+   ``perf/bench_models.py``) for EndNet and the flagship on the full
+   scene, serving (bf16, chunk 8192, a 4-band crop) and training (bf16,
+   batch 1024), 1 s and 1 run each: every rate finite and positive, both
+   trains at batch 1024 (no halving), K1-K7 launched in the flagship's
+   runs.
+
 Phase 2 also holds K8 and K9 (float32 and bf16, at every zoo band shape,
 a ragged batch, one token, 17 tokens, odd hd and the 512-token limit) and
 times both dtypes beside their plain versions,
@@ -157,7 +165,7 @@ for K9, the composition of the plain group LayerNorm with K8.
 Then one JSON line with the kernel table (time, plain time, bound and what
 bounds it, library time, launches per path: serve, train, runloop,
 serve_zoo, train_zoo, cnn_zoo, serve_stride, train_aug, path_types,
-sweep and mesh), and as the last line
+sweep, mesh and bench_models), and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -309,6 +317,9 @@ PATH_BACKBONES = (
 # 2: 87 origins in 3 chunks, 2 for rank 0); MoCo at the same batch and
 # PRETRAIN_QUEUE
 MESH_CROP, MESH_BATCH = (40, 200), 64
+# phase bench_models: the cheapest model of the registry and the flagship,
+# 1 s and 1 run a phase each
+BENCH_MODELS, BENCH_BUDGET_S = ("EndNet", "Multimodality_Mamba"), 1.0
 
 
 class Failed(Exception):
@@ -2890,6 +2901,44 @@ def phase_mesh(tmp, state, card):
             for k in PATH_KERNELS}, figures
 
 
+def phase_bench_models(card):
+    """``tools/bench_models.py``'s serving and train measurements of
+    ``BENCH_MODELS`` on the full scene. Returns (the launches of their
+    runs; the reports and the phase's seconds)."""
+    import math
+
+    import torch
+
+    from vit_cnn_tpu_torch.ops import _build
+    from vit_cnn_tpu_torch.tools import bench_models as bm
+    from vit_cnn_tpu_torch.tools import load_scene
+
+    t0 = time.perf_counter()
+    scene = load_scene()
+    _build.launches.clear()
+    reports = [bm.bench(name, scene, torch.device("cuda"), "both",
+                        BENCH_BUDGET_S, 1) for name in BENCH_MODELS]
+    counts = dict(_build.launches)
+    bad = []
+    for r in reports:
+        print("[bench_models] ({}) {}".format(card, bm.row(r)), flush=True)
+        rates = [r[k] for k in ("windows_per_s", "request_s",
+                                "patches_per_s", "host_ms_per_step",
+                                "device_ms_per_step")]
+        if not all(math.isfinite(v) and v > 0 for v in rates):
+            bad.append("{}: a rate not finite and positive".format(
+                r["model"]))
+        if r["batch"] != bm.BATCH:
+            bad.append("{}: trained at batch {}, not {}".format(
+                r["model"], r["batch"], bm.BATCH))
+    _check_counts(counts, None, "bench_models")
+    seconds = time.perf_counter() - t0
+    print("[bench_models] phase {:.1f} s".format(seconds), flush=True)
+    if bad:
+        raise Failed("bench_models: {}".format("; ".join(bad)))
+    return counts, {"reports": reports, "seconds": seconds}
+
+
 def main():
     import torch
 
@@ -2932,6 +2981,7 @@ def main():
                 stride_counts, aug_counts, mode_figures = \
                     phase_run_modes(tmp, state, card)
                 mesh_counts, mesh_figures = phase_mesh(tmp, state, card)
+                bench_counts, bench_figures = phase_bench_models(card)
             finally:
                 os.chdir(here)
     except Failed as e:
@@ -2994,7 +3044,7 @@ def main():
              "train_zoo": zoo_train, "cnn_zoo": cnn,
              "serve_stride": stride_counts, "train_aug": aug_counts,
              "path_types": path_counts, "sweep": sweep_counts,
-             "mesh": mesh_counts}
+             "mesh": mesh_counts, "bench_models": bench_counts}
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
                   launches=paths["train" if name in ADJOINTS else
                                  "serve_zoo" if name in HEADS else
@@ -3011,6 +3061,7 @@ def main():
     print("[run_modes] {}".format(json.dumps(mode_figures)), flush=True)
     print("[path_types] {}".format(json.dumps(path_figures)), flush=True)
     print("[mesh] {}".format(json.dumps(mesh_figures)), flush=True)
+    print("[bench_models] {}".format(json.dumps(bench_figures)), flush=True)
     print(card, flush=True)                  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,8 @@ work (gathers, orders, splits, schedules) is exact; bf16 outputs within
 one bf16 step (rtol = atol = 2e-2).
 """
 
+import os
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -29,6 +31,7 @@ from vit_cnn_tpu_torch.models.mm_mamba import MultimodalityMamba
 from vit_cnn_tpu_torch.models.registry import get_model
 from vit_cnn_tpu_torch.nn.layers import ChannelLastBatchNorm, init_parameters
 from vit_cnn_tpu_torch.pipeline import patches
+from vit_cnn_tpu_torch.train import checkpoint as ckpt
 from vit_cnn_tpu_torch.train.loop import Trainer, _pad_to_multiple
 from vit_cnn_tpu_torch.train.losses import weighted_cross_entropy
 from vit_cnn_tpu_torch.train.optim import (OptimizerSpec, build_lr_schedule,
@@ -344,7 +347,7 @@ def test_bf16_train_step_keeps_float32_parameters():
                for p in model.parameters())
 
 
-def test_unported_training_options_raise():
+def test_unported_training_options_raise(tmp_path):
     img1, img2, gt = _scene(9)
     with pytest.raises(ValueError, match="not implemented"):
         sample_gt(gt, 0.5, mode="spatial")
@@ -353,8 +356,10 @@ def test_unported_training_options_raise():
     hp = {"batch_size": 2, "epoch": 1, "lr": 1e-3, "weights": np.ones(4)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(model, dict(hp, loss="focal"), pipe)
-    # sgd trains, but its momentum trace has no place in a resumable state
+    # sgd trains, and its (momentum-0, empty) state goes into a resumable
+    # file (tests/test_torch_sgd_resume.py holds the momentum trace)
     sgd = Trainer(model, dict(hp, optimizer="sgd"), pipe)
     assert isinstance(sgd.optimizer, torch.optim.SGD)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sgd.save_resumable("unused", epoch=0)
+    path = sgd.save_resumable(str(tmp_path / "sgd"), epoch=0)
+    assert os.path.exists(path)
+    assert ckpt.restore_checkpoint(path)["opt_state"] == {}

@@ -8,8 +8,10 @@
   python -m vit_cnn_tpu_torch.tools.scan_ab OTHER.cu    # old K1 vs V1 (8, 8)
   python -m vit_cnn_tpu_torch.tools.kernel_ablation KIND A.cu ... # K1-K7 copies
   python -m vit_cnn_tpu_torch.tools.mesh_check --ranks 4   # the mesh, 4 cards
+  python -m vit_cnn_tpu_torch.tools.bench_models [MODEL ...] # per-model table
 
-The first three build their models as ``chip_smoke.py`` does: at
+The first three and ``bench_models`` build their models as
+``chip_smoke.py`` does: at
 Houston2013 width on the Synthetic scene at 349 x 1905, with the seeded
 weights of ``convert.seeded_state_dict`` (:func:`model_state`);
 ``profile_train`` takes ``--model`` (the flagship by default), and
@@ -22,15 +24,21 @@ the probes' shapes against their bounds (:func:`bound`, with CUDA-event medians,
 the first K1 kept as a template, on the same inputs (:func:`scan_inputs`);
 ``kernel_ablation`` builds copies of K1-K7 (variants, or another
 commit's file) and times them side by side (KIND: scan, conv, sum,
-attn, scan_bwd, conv_bwd or sum_bwd).
+attn, scan_bwd, conv_bwd or sum_bwd). ``bench_models``, the twin of the
+JAX package's ``perf/bench_models.py``, gives each of the 14 registry
+models a serving row and a train row (median and spread of repeated
+runs, the train step's device time beside its host time), stamped with
+:func:`card_line` and :func:`stamp`.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import statistics
 import subprocess
 import tempfile
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
@@ -118,6 +126,36 @@ def card_line() -> str:
                          text=True, timeout=60)
     return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
         "nvidia-smi failed: " + smi.stderr.strip()
+
+
+def stamp() -> str:
+    """The code a measurement ran: ``git <sha>`` (``+dirty`` where the
+    port's package differs from that commit) when the checkout is a git
+    work tree, and always ``tree <hash>``, a sha256 of the package's
+    sources (``.py``, ``.cu``, ``.cuh``), which a copy without ``.git``
+    has too."""
+    pkg = Path(__file__).resolve().parents[1]
+    root = pkg.parent
+    h = hashlib.sha256()
+    for f in sorted(pkg.rglob("*")):
+        if f.suffix in (".py", ".cu", ".cuh"):
+            h.update(str(f.relative_to(root)).encode())
+            h.update(f.read_bytes())
+    tree = "tree " + h.hexdigest()[:16]
+
+    def git(*args):
+        try:
+            out = subprocess.run(["git", "-C", str(root), *args],
+                                 capture_output=True, text=True, timeout=60)
+        except OSError:
+            return None
+        return out.stdout.strip() if out.returncode == 0 else None
+
+    if git("rev-parse", "--show-toplevel") != str(root):
+        return tree
+    dirty = git("status", "--porcelain", "--", pkg.name)
+    return "git {}{} {}".format(git("rev-parse", "HEAD"),
+                                "+dirty" if dirty else "", tree)
 
 
 def load_scene(crop: Optional[Tuple[int, int]] = None):

@@ -88,6 +88,16 @@ def _device_us(event) -> float:
     return event.self_cuda_time_total if t is None else t
 
 
+def kernel_rows(rows):
+    """The kernel rows of a profile's ``key_averages()`` ``rows``: CUDA
+    rows that are neither user annotations nor the plain-backward ranges
+    (a range's GPU row spans its kernels, so it is kept out of the
+    kernel sums)."""
+    return [e for e in rows if str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in (HEADS_BACKWARD, POOLED_BACKWARD)]
+
+
 def _timed_steps(trainer, args, n: int) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -117,14 +127,10 @@ def main(argv=None) -> int:
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms = _timed_steps(trainer, step_args, STEPS)
 
-    ranges = (HEADS_BACKWARD, POOLED_BACKWARD)
     rows = prof.key_averages()
-    # a range's GPU row spans its kernels: kept out of the kernel sums
-    kernels = [e for e in rows if str(e.device_type).endswith("CUDA")
-               and not getattr(e, "is_user_annotation", False)
-               and e.key not in ranges]
+    kernels = kernel_rows(rows)
     plain_bwd = {}
-    for name in ranges:
+    for name in (HEADS_BACKWARD, POOLED_BACKWARD):
         cpu = [e.device_time_total for e in rows if e.key == name
                and not str(e.device_type).endswith("CUDA")]
         if cpu:

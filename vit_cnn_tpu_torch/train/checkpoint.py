@@ -17,7 +17,10 @@ Resumable state (:func:`save_train_state`) takes the JAX package's
 fallback layout (no orbax): one ``<path>.msgpack`` with ``params``,
 ``batch_stats``, ``opt_state`` and ``step``, and ``<path>.msgpack.meta.json``
 beside it. ``opt_state`` holds the Adam / AdamW moments ``mu`` and ``nu``
-as flax ``params`` trees. A JAX train state cannot be resumed here (its
+as flax ``params`` trees, or SGD's momentum trace as ``trace`` (torch's
+``momentum_buffer``, optax's ``TraceState.trace``), or nothing for SGD
+at momentum 0; restoring into another kind of optimizer raises
+``KeyError``. A JAX train state cannot be resumed here (its
 augmentation draws come from a jax PRNG key), nor the reverse.
 """
 
@@ -85,46 +88,64 @@ def restore_state_dict(path: str, model: torch.nn.Module
 # ---------------------------------------------------------------------------
 
 _MOMENTS = (("mu", "exp_avg"), ("nu", "exp_avg_sq"))
+_TRACE = (("trace", "momentum_buffer"),)
+
+
+def _layout(optimizer: torch.optim.Optimizer):
+    """The (tree, state key) pairs of ``optimizer``'s resumable state:
+    Adam's and AdamW's moments; SGD's momentum trace, or nothing at
+    momentum 0 (torch keeps no state then, and optax's chain has no
+    ``trace``)."""
+    if isinstance(optimizer, torch.optim.SGD):
+        if any(g["momentum"] for g in optimizer.param_groups):
+            return _TRACE
+        return ()
+    return _MOMENTS
 
 
 def _optimizer_tree(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer, step: int) -> Dict:
-    """The moments of every parameter as flax trees; empty before the
-    first step. Every parameter's own step count must equal ``step``."""
+    """The optimizer's state of every parameter as flax trees (Adam's
+    ``mu`` and ``nu``, SGD's ``trace``), each empty before the first
+    step. Every parameter's own Adam step count must equal ``step``."""
+    layout = _layout(optimizer)
     names = {id(p): k for k, p in model.named_parameters()}
-    held = {names[id(p)]: s for p, s in optimizer.state.items()}
+    held = {names[id(p)]: s for p, s in optimizer.state.items() if s}
     if not held:
-        if step:
+        if step and layout:
             raise ValueError("step {} but no optimizer state".format(step))
-        return {"mu": {}, "nu": {}}
+        return {tree: {} for tree, _ in layout}
     if set(held) != set(names.values()):
         raise ValueError("optimizer state for {} of {} parameters; a "
                          "resumable state needs all or none".format(
                              len(held), len(names)))
-    off = sorted(k for k, s in held.items() if int(s["step"]) != step)
-    if off:
-        raise ValueError("parameters whose Adam step is not {}: {}".format(
-            step, off))
+    if layout is _MOMENTS:
+        off = sorted(k for k, s in held.items() if int(s["step"]) != step)
+        if off:
+            raise ValueError("parameters whose Adam step is not {}: {}"
+                             .format(step, off))
     return {tree: state_dict_to_flax(model, {
         k: s[key] for k, s in held.items()})["params"]
-        for tree, key in _MOMENTS}
+        for tree, key in layout}
 
 
 def _load_optimizer(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer, opt_state: Dict,
                     step: int) -> None:
-    if set(opt_state) != {"mu", "nu"}:
-        raise KeyError("opt_state holds {}, not mu and nu".format(
-            sorted(opt_state)))
-    if not opt_state["mu"] and not opt_state["nu"]:
-        if step:
-            raise ValueError("step {} but no optimizer moments".format(step))
+    layout = _layout(optimizer)
+    want = {tree for tree, _ in layout}
+    if set(opt_state) != want:
+        raise KeyError("opt_state holds {}; a {} optimizer takes {}".format(
+            sorted(opt_state), type(optimizer).__name__, sorted(want)))
+    if not any(opt_state[tree] for tree in want):
+        if step and layout:
+            raise ValueError("step {} but no optimizer state".format(step))
         optimizer.state.clear()
         return
     params = dict(model.named_parameters())
-    moments = {key: flax_to_state_dict({"params": opt_state[tree]}, model,
-                                       expected=params)
-               for tree, key in _MOMENTS}
+    values = {key: flax_to_state_dict({"params": opt_state[tree]}, model,
+                                      expected=params)
+              for tree, key in layout}
     index = {k: i for i, (k, _) in enumerate(model.named_parameters())}
     order = [p for group in optimizer.param_groups for p in group["params"]]
     names = {id(p): k for k, p in params.items()}
@@ -132,16 +153,19 @@ def _load_optimizer(model: torch.nn.Module,
         raise ValueError("the optimizer does not hold the model's "
                          "parameters in module order")
     sd = optimizer.state_dict()
-    sd["state"] = {index[k]: {"step": torch.tensor(float(step)),
-                              **{key: moments[key][k] for _, key in _MOMENTS}}
+    sd["state"] = {index[k]: {key: values[key][k] for _, key in layout}
                    for k in params}
+    if layout is _MOMENTS:
+        for state in sd["state"].values():
+            # a tensor each: Adam counts each parameter's steps in place
+            state["step"] = torch.tensor(float(step))
     optimizer.load_state_dict(sd)
 
 
 def save_train_state(path: str, model: torch.nn.Module,
                      optimizer: torch.optim.Optimizer, step: int,
                      extra: Optional[Dict] = None) -> str:
-    """Write the model, its optimizer's moments and ``step`` to
+    """Write the model, its optimizer's state and ``step`` to
     ``<path>.msgpack`` (and ``extra`` as JSON to
     ``<path>.msgpack.meta.json``); returns the ``.msgpack`` path."""
     tree = state_dict_to_flax(model)

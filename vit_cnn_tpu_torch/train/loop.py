@@ -21,10 +21,11 @@ the best-validation ``state_dict`` (host copies) and, as the JAX loop
 does, writes the best-epoch and final-epoch checkpoint files
 (train/checkpoint.py) under ``checkpoint_root``, ``./checkpoints`` of the
 working directory by default. ``save_resumable`` / ``restore_resumable``
-write and read the whole train state: model, optimizer moments, step,
-the shuffle's RandomState and the device generator (the augmentation's
-and the noise's). With ``hyperparams["debug_nans"]`` the step stops at
-the first NaN, as ``jax_debug_nans`` does (:mod:`..utils.nancheck`).
+write and read the whole train state: model, optimizer state (Adam's
+moments or SGD's momentum trace), step, the shuffle's RandomState and
+the device generator (the augmentation's and the noise's). With
+``hyperparams["debug_nans"]`` the step stops at the first NaN, as
+``jax_debug_nans`` does (:mod:`..utils.nancheck`).
 
 With ``mesh`` (:mod:`..parallel.mesh`, every rank running the same
 Trainer) the step is data parallel, as the JAX Trainer's over its
@@ -145,7 +146,6 @@ class Trainer:
             weight_decay=float(hyperparams.get("weight_decay", 0.0)),
             step_size=hyperparams.get("scheduler_step", 30),
             gamma=hyperparams.get("scheduler_gamma", 0.9))
-        self.optimizer_name = spec.name
         self.schedule = build_lr_schedule(spec, steps_per_epoch)
         self.optimizer = build_optimizer(spec, model.parameters())
         self.steps_done = 0
@@ -232,10 +232,6 @@ class Trainer:
     # restarted run continues with the same shuffle order and augmentation
     # draws (the JAX loop's save_resumable / restore_resumable).
     def save_resumable(self, path: str, epoch: int) -> str:
-        if self.optimizer_name == "sgd":
-            raise NotImplementedError(
-                "resumable states hold Adam moments; sgd's momentum trace "
-                "is not saved (ROADMAP Queue 1, 'Not ported yet')")
         rng_state = self.np_rng.get_state()
         extra = {"epoch": epoch,
                  "np_rng": [rng_state[0], np.asarray(rng_state[1]).tolist(),
