@@ -14,8 +14,7 @@ the result lines:
    (K1 selective scan, K2 dir_conv_silu, K3 inv_perm_weighted_sum, K4
    attention) at the flagship's serving shapes and one ragged batch (K1,
    K2 and K3 timed at both stages in bf16, K4 at both NonLocal shapes
-   beside SDPA, each with its bound and share; K1 beside the first K1,
-   V1's (8, 8) instance, with the ratio new / old), the
+   beside SDPA, each with its bound and share), the
    adjoints (K5-K7) at its train shapes (batch 1024 and a ragged 1001;
    K5 timed in bf16 at all four of a train step's launches, K6 and K7 at
    both train stages, each printed with its bound and share), and the
@@ -69,13 +68,14 @@ the result lines:
    flipped gate.
 9. variants — run right after phase 2: the kernel-tuning sweeps
    (``tools/scan_sweep.py``, ``tools/heads_attn_variants.py``) at their
-   shapes with fewer repetitions, plus a ragged batch and one token. K1's
-   (channels per block, time chunk) grid (V1) and the batch-major scan
-   (V2) beside K1 and K1 fed by permute copies; the tensor-core (V3,
-   per-head and head-masked) and CUDA-core outer-product (V4) forms of
-   head-last attention beside K8 and SDPA. Every variant against its
-   plain version, V1's (8, 8) instance (the first K1) within the same
-   tolerance of K1, and each variant kernel launched.
+   shapes with fewer repetitions, plus a ragged batch and one token. The
+   grid of K1's own kernel template (V1: channels per block x staged time
+   steps) and the batch-major scan (V2) beside K1 and K1 fed by permute
+   copies; the tensor-core (V3, per-head and head-masked) and CUDA-core
+   outer-product (V4) forms of head-last attention beside K8 and SDPA.
+   Every variant against its plain version, V1's instance at K1's plan
+   equal to K1 bit for bit, forward and reverse, and each variant kernel
+   launched.
 
 10. cnn_zoo — run after the zoo phases: the CNN zoo (EndNet, the four
    Hong fusion CNNs, S2ENet, FusAtNet, MFT, HCTnet) at registry widths
@@ -435,8 +435,7 @@ def phase_kernels():
     import torch
     import torch.nn.functional as F
 
-    from vit_cnn_tpu_torch.ops import (attention, dirstream, scan_variants,
-                                       selective_scan)
+    from vit_cnn_tpu_torch.ops import attention, dirstream, selective_scan
     from vit_cnn_tpu_torch.tools import bound as _bound
     from vit_cnn_tpu_torch.tools import median_ms as _median_ms
     from vit_cnn_tpu_torch.tools import scan_inputs as _scan_inputs
@@ -469,29 +468,21 @@ def phase_kernels():
                     if band and not rev:
                         t = _median_ms(lambda: selective_scan.selective_scan(
                             *args, reverse=rev))
-                        # the first K1, V1's (8, 8) instance
-                        old = _median_ms(
-                            lambda: scan_variants.selective_scan_tiled(
-                                *args, reverse=rev, rows=8, chunk=8))
                         p = _median_ms(
                             lambda: selective_scan.selective_scan_reference(
                                 *args, reverse=rev), reps=3)
                         # one exp(dt A) per state element and step
                         bound = _bound(list(args) + [got], dn,
                                        exps=ns * L * d * 16 * b)
-                        print("    K1 {}: kernel {:.3f} ms, first K1 (V1 "
-                              "8x8) {:.3f}, new / old {:.3f}, plain {:.3f}, "
-                              "bound {:.3f} ({})".format(
-                                  stage, t, old, t / old, p, *bound),
+                        print("    K1 {}: kernel {:.3f} ms, plain {:.3f}, "
+                              "bound {:.3f} ({})".format(stage, t, p, *bound),
                               flush=True)
                         _timed(rows, "selective_scan", stage, dn, ms=t,
-                               first_k1_ms=old, plain_ms=p,
-                               bound_ms=bound[0], bound_by=bound[1])
-                        extra = {"first_k1_ms": old}
+                               plain_ms=p, bound_ms=bound[0],
+                               bound_by=bound[1])
                         if not main:
                             t = p = bound = None
-                            extra = {}
-                    record("selective_scan", err, dn, t, p, bound, **extra)
+                    record("selective_scan", err, dn, t, p, bound)
                     del args, got, want
                 # K2 / K3 with the real '{L}_2+8' orders
                 orders, inv, rev_rows = _tables(L)
@@ -907,9 +898,9 @@ def phase_variants(rows):
     plus a ragged batch and one token: every variant against its plain
     version (``tools.TOL``, as every kernel here: V1, V2 and V4 in float32
     and bf16; V3 in bf16 only, held to bf16's limit since it rounds
-    P to bf16 before P.V as the TPU probes' F and G do; V1's (8, 8)
-    instance, the first K1, also within that tolerance of K1, forward and
-    reverse), timed beside
+    P to bf16 before P.V as the TPU probes' F and G do; V1's instance at
+    K1's plan also equal to K1 bit for bit, forward and reverse), timed
+    beside
     K1 or K8, the plain version and SDPA. Adds rows 10-13 to the JSON
     rows and returns the run's launches (the path ``sweep``)."""
     import torch
@@ -946,7 +937,7 @@ def phase_variants(rows):
            for r in scans + heads if not all_ok(r)]
     if bad:
         raise Failed("variants disagree with their plain versions (V1's "
-                     "(8, 8) instance: or with K1): {}".format(bad))
+                     "instance at K1's plan: or with K1): {}".format(bad))
     missing = [k for k in VARIANTS if counts.get(k, 0) <= 0]
     if missing:
         raise Failed("variant kernels never launched: {}".format(missing))
@@ -3010,8 +3001,9 @@ def main():
         "pooled_heads_attention": (
             "vit_cnn_tpu_torch/csrc/heads_attention.cu",
             "vit_cnn_tpu/ops/attention.py:314"),
-        "selective_scan_tiled": ("vit_cnn_tpu_torch/csrc/selective_scan.cu",
-                                 "perf/scan_sweep.py:47"),
+        "selective_scan_tiled": (
+            "vit_cnn_tpu_torch/csrc/selective_scan_fwd.cu",
+            "perf/scan_sweep.py:47"),
         "selective_scan_batch_major": (
             "vit_cnn_tpu_torch/csrc/scan_variants.cu",
             "perf/scan_bm_sweep.py:27"),

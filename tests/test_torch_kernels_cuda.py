@@ -21,12 +21,14 @@ K6 and K7 at the shuffle paths' stream counts (nb, nr) = (1, 0), (2, 1),
 (3, 1) with an order row drawn anew on every call, and the Mamba layer of
 every path kind and the batch-major MambaMixer against the CPU with their
 launch counts. The tuning
-sweep's variants: every instance of the first K1's tile and chunk grid
-(V1) against the plain scan and, within the same tolerance, against K1,
-the batch-major scan (V2) at
+sweep's variants: every instance of the grid of K1's kernel template
+(V1) against the plain scan, and its instance at K1's plan equal to K1
+bit for bit, the batch-major scan (V2) at
 ragged batches, and the tensor-core (V3, bf16) and outer-product (V4)
 head-last attention at one token, 65 and 146 tokens, head widths 4 and 16
-and ragged batches. chip_smoke.py covers the serving and training shapes.
+and ragged batches; V4 also at head widths 1 / 3 / 4 / 5 / 16 / 17 / 32
+up to the largest n its shared memory takes, and on misaligned inputs.
+chip_smoke.py covers the serving and training shapes.
 
 These tests need a CUDA card and skip without one. On the GPU host:
 
@@ -62,10 +64,13 @@ from vit_cnn_tpu_torch.ops.dirstream import (
     inv_perm_weighted_sum, inv_perm_weighted_sum_backward,
     inv_perm_weighted_sum_backward_reference,
     inv_perm_weighted_sum_reference)
-from vit_cnn_tpu_torch.ops.heads_variants import (heads_attention_mma,
-                                                  heads_attention_outer)
+from vit_cnn_tpu_torch.ops.attention import SMEM_LIMIT
+from vit_cnn_tpu_torch.ops.heads_variants import (MAX_N,
+                                                  heads_attention_mma,
+                                                  heads_attention_outer,
+                                                  outer_smem)
 from vit_cnn_tpu_torch.ops.scan_variants import (
-    TILE_CHUNKS, TILE_ROWS, selective_scan_batch_major,
+    TILE_CHUNKS, TILE_ROWS, k1_instance, selective_scan_batch_major,
     selective_scan_batch_major_reference, selective_scan_tiled)
 from vit_cnn_tpu_torch.ops.selective_scan import (
     scan_tile, selective_scan, selective_scan_backward,
@@ -774,11 +779,12 @@ def test_heads_wrappers_refuse_what_the_kernels_do_not_take(gen):
     ((6,), 81, 72, 16, 1001, False), ((4,), 49, 128, 16, 33, True),
     ((), 13, 9, 4, 70, False), ((2,), 30, 5, 16, 1, True)])
 def test_every_tiled_scan_instance(gen, dtype, lead, L, d, n, b, reverse):
-    """Each (rows, chunk) instance of V1 against the plain scan; the (8, 8)
-    instance, the first K1, also against K1."""
+    """Each (rows, chunk) instance of V1 against the plain scan; the
+    instance at K1's plan is K1's kernel, so equal to K1 bit for bit."""
     args = _scan_args(gen, lead, L, d, n, b, dtype)
     want = selective_scan_reference(*args, reverse)
     k1 = selective_scan(*args, reverse=reverse)
+    plan = k1_instance(lead[0] if lead else 1, L, d, n, b, dtype)
     for rows in TILE_ROWS:
         for chunk in TILE_CHUNKS:
             before = _build.launches["selective_scan_tiled"]
@@ -786,8 +792,8 @@ def test_every_tiled_scan_instance(gen, dtype, lead, L, d, n, b, reverse):
                                        chunk=chunk)
             assert _build.launches["selective_scan_tiled"] == before + 1
             _close(got, want, dtype)
-            if (rows, chunk) == (8, 8):
-                _close(got, k1, dtype)
+            if (rows, chunk) == plan:
+                assert torch.equal(got, k1)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -825,6 +831,44 @@ def test_heads_attention_variants(gen, B, n, h, hd):
             _close(heads_attention_mma(q, k, v, hd ** -0.5, masked), want,
                    dtype)
             assert _build.launches["heads_attention_mma"] == before + 1
+
+
+def _outer_max_n(c):
+    """The largest n whose K and V V4 stages in one block."""
+    return max(n for n in range(1, MAX_N + 1)
+               if outer_smem(n, c) <= SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("hd", [1, 3, 4, 5, 16, 17, 32])
+@pytest.mark.parametrize("n", [1, 65, 146, "max"])
+def test_heads_attention_outer_domain(gen, hd, n):
+    """V4 across head widths (h = min(16, 256 // hd) heads: C up to 256)
+    and token counts up to the largest its shared memory takes, at a
+    ragged batch, in both dtypes."""
+    h = min(16, 256 // hd)
+    for dtype in DTYPES:
+        tokens = min(MAX_N if n == "max" else n, _outer_max_n(h * hd))
+        B = 5 if tokens > 146 else 33
+        q, k, v = (_randn(gen, B, tokens, h, hd).to(dtype) for _ in range(3))
+        before = _build.launches["heads_attention_outer"]
+        _close(heads_attention_outer(q, k, v, hd ** -0.5),
+               attention_reference_heads(q, k, v, hd ** -0.5), dtype)
+        assert _build.launches["heads_attention_outer"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_heads_attention_outer_offset_views(gen, dtype):
+    """q, k, v and o one value past an aligned address (contiguous views
+    with an offset): the scalar q / o loads and value-wise staging."""
+    B, n, h, hd = 7, 65, 16, 4
+
+    def shifted():
+        flat = _randn(gen, B * n * h * hd + 1).to(dtype)
+        return flat[1:].view(B, n, h, hd)
+
+    q, k, v = shifted(), shifted(), shifted()
+    _close(heads_attention_outer(q, k, v, 0.5),
+           attention_reference_heads(q, k, v, 0.5), dtype)
 
 
 def test_variant_wrappers_refuse_what_the_kernels_do_not_take(gen):

@@ -2,7 +2,7 @@
 path of vit_cnn_tpu_torch.ops.scan_variants and .heads_variants) against
 the JAX package's probes and kernels, on the same numpy inputs:
 
-* V1 (K1's tile and chunk grid) against ``perf/scan_sweep.py``
+* V1 (the grid of K1's own kernel template) against ``perf/scan_sweep.py``
   ``scan_lanemajor`` (bb 8, time chunk 4), forward and reverse, and V2
   (batch-major I/O) against ``perf/scan_bm_sweep.py`` ``scan_bm`` (block_b
   8), both Pallas kernels in interpret mode, loaded by path (the probes
@@ -15,7 +15,9 @@ the JAX package's probes and kernels, on the same numpy inputs:
 
 And the wrappers' dispatch: CPU tensors take the plain version and launch
 nothing; inputs that require a gradient, V3 in float32 and shapes outside
-a kernel's limits raise on any device.
+a kernel's limits raise on any device. K1's launch plan is an instance of
+V1's grid at the flagship's shapes, and V4's limits take every shape its
+first design took.
 
 Tolerances: the scans rtol 1e-5 (atol 1e-6 for entries near zero; the
 same float32 recurrence, another summation order); V4 in float32 the JAX
@@ -34,11 +36,16 @@ import torch
 
 from vit_cnn_tpu.ops import attention as jax_attention
 from vit_cnn_tpu_torch.ops import _build
-from vit_cnn_tpu_torch.ops.heads_variants import (heads_attention_mma,
-                                                  heads_attention_outer)
+from vit_cnn_tpu_torch.ops.attention import SMEM_LIMIT
+from vit_cnn_tpu_torch.ops.heads_variants import (MAX_C, MAX_N,
+                                                  heads_attention_mma,
+                                                  heads_attention_outer,
+                                                  outer_smem)
 from vit_cnn_tpu_torch.ops.scan_variants import (
-    TILE_CHUNKS, TILE_ROWS, selective_scan_batch_major,
+    TILE_CHUNKS, TILE_ROWS, k1_instance, selective_scan_batch_major,
     selective_scan_batch_major_reference, selective_scan_tiled)
+from vit_cnn_tpu_torch.ops.selective_scan import (SCAN_CHUNK, SCAN_ROWS,
+                                                  scan_tile)
 
 PERF = os.path.join(os.path.dirname(__file__), os.pardir, "perf")
 SCAN_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -164,7 +171,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
 
     before = dict(_build.launches)
     lane = _scan_lane(1)
-    torch.testing.assert_close(selective_scan_tiled(*lane, True, 16, 27),
+    torch.testing.assert_close(selective_scan_tiled(*lane, True, 16, 8),
                                selective_scan_reference(*lane, True),
                                rtol=0, atol=0)
     bm = [x.permute(2, 0, 1) if x.dim() == 3 else x for x in lane]
@@ -228,7 +235,7 @@ def test_scan_variants_refuse_shapes_outside_their_limits():
     with pytest.raises(ValueError, match="V1 instances"):
         selective_scan_tiled(*lane, rows=32)
     with pytest.raises(ValueError, match="V1 instances"):
-        selective_scan_tiled(*lane, chunk=4)
+        selective_scan_tiled(*lane, chunk=27)
     b = 3
     u = torch.zeros((b, L, D))
     wide_state = torch.zeros((b, L, 17))
@@ -239,3 +246,51 @@ def test_scan_variants_refuse_shapes_outside_their_limits():
         selective_scan_batch_major(u, u, torch.zeros((D, N)),
                                    torch.zeros((b, L + 1, N)),
                                    torch.zeros((b, L + 1, N)), torch.zeros(D))
+
+
+# (streams, L, d, b): the flagship's scans at serving stages 1 and 2 (6
+# forward and 4 reverse streams, one band of 7,588 windows) and at the
+# train batch of 1,024
+K1_SHAPES = [(6, 81, 72, 7588), (4, 81, 72, 7588), (6, 49, 128, 7588),
+             (4, 49, 128, 7588), (6, 81, 72, 1024), (4, 49, 128, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ns,L,d,b", K1_SHAPES)
+def test_k1_plan_is_an_instance_of_v1_grid(dtype, ns, L, d, b):
+    """K1 launches the (4 R, SCAN_CHUNK) instance of its template, and V1's
+    grid holds it, so the sweep times K1 among its neighbours."""
+    R, warps = scan_tile(ns, L, d, 16, b, dtype)
+    rows, chunk = k1_instance(ns, L, d, 16, b, dtype)
+    assert (rows, chunk) == (SCAN_ROWS * R, SCAN_CHUNK) and warps == 4
+    assert rows in TILE_ROWS and chunk in TILE_CHUNKS
+    lane = _scan_lane(7)
+    torch.testing.assert_close(
+        selective_scan_tiled(*lane, rows=rows, chunk=chunk),
+        selective_scan_tiled(*lane), rtol=0, atol=0)
+
+
+def test_v4_limits_take_every_shape_the_first_design_took():
+    """The first V4 took n <= 512, h * hd <= 256 and K and V of a row in
+    float32 (8 n C bytes) within a block; the redesign stages the same
+    float32 rows, each padded to 16 bytes, and takes the same shapes."""
+    for n in range(1, MAX_N + 1):
+        for c in range(1, MAX_C + 1):
+            first = 8 * n * c <= SMEM_LIMIT
+            assert (outer_smem(n, c) <= SMEM_LIMIT) == first, (n, c)
+    assert outer_smem(MAX_N, MAX_C) > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,h,hd,fits", [
+    (512, 16, 16, False), (512, 8, 32, False), (113, 16, 16, True),
+    (114, 8, 32, False)])
+def test_v4_limits_at_the_shared_memory_edge(dtype, n, h, hd, fits):
+    """n = 512 at h * hd = 256 stays refused in both dtypes; the first
+    design's largest n at width 256 (113) is taken, 114 refused."""
+    q = torch.zeros((1, n, h, hd), dtype=dtype)
+    if fits:
+        assert heads_attention_outer(q, q, q, 0.5).shape == q.shape
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            heads_attention_outer(q, q, q, 0.5)

@@ -45,18 +45,47 @@
 //   C-fragment layout, which is the A-fragment layout of P for P.V once
 //   rounded to bf16 (no trip through shared memory). Padded keys score
 //   -inf. Each row's max and sum reduce over the 4 lanes that hold it.
-// - V4: one block per batch row; K and V of all heads in shared memory as
-//   float32. A thread owns R = 32 / HD query rows of one head (HD: hd
-//   rounded up to 4, 8, 16 or 32) with their q, output sums, maxima and
-//   sums in registers. Per chunk of kKeys keys it reads each k_j once,
-//   adds q_c k_jc to R scores per channel c (hd rank-1 updates), rescales
-//   its sums only when a row's maximum grows, then reads each v_j once.
-//   This is the "several query rows per thread" that K8 leaves for later:
-//   each K and V row read from shared memory serves R rows.
+// - V4: one block per batch row, its K and V staged in shared memory as
+//   float32 by 16-byte loads (converted as stored). A thread owns R query
+//   rows of one head (R = 8 at HD = 4, 4 at HD = 8, 3 at HD = 16, 2 at 32;
+//   HD: hd rounded up to 4, 8, 16 or 32), consecutive threads on
+//   consecutive heads, so a warp's reads of a K or V row fall on distinct
+//   banks or broadcast, and its q loads from device memory are one
+//   contiguous row, read as vectors of hd values and pre-scaled by
+//   scale * log2(e) so that each P is one ex2.approx. Where HD <= 8 a
+//   first pass over the staged keys takes each row's exact maximum (hd
+//   FMAs a score) and the second accumulates P and P.V with no rescale;
+//   where HD >= 16 one pass rescales every row once per tile of 4 keys,
+//   with no branch. Scores, P and P.V are float32. Each K and V row read
+//   from shared memory serves R query rows; the block's threads are sized
+//   to the row's h x ceil(n / R) tasks.
+//   At MHST's pooled band (16 heads of 4, bf16) the exps bound it at
+//   0.122 ms, and ~17 issued instructions a score take ~0.33 ms at the
+//   card's instruction rate. Measured there on an H100 (NVIDIA H100
+//   80GB HBM3, 700 W; tools/kernel_ablation.py outer, each step against
+//   the committed form): the first design, one block a row with K and V
+//   as float32 loaded one 2-byte value at a time, q read as scalars and a
+//   rescale behind a branch every 4 keys, took 2.83 ms; this form 0.44.
+//   The exact-max first pass is worth 13% (0.50 with the online form);
+//   staging float32 12% (0.50 with K and V kept bf16 and converted at
+//   each read: registers, not shared memory, bound the resident blocks);
+//   one block a row 18% (with K and V staged bf16: 0.61 with a persistent
+//   grid of resident blocks that overlapped the next row's cp.async copy
+//   with this row's compute, 0.50 without; the card's other resident
+//   blocks already hide a block's staging); R = 4 instead of 8 at HD = 4
+//   changes nothing (0.44). At hd = 16 the 32 FMAs a score hold it at
+//   0.54-0.59 ms at the ViT band (SDPA 0.55) and 2.0-2.1 at the
+//   SpectralFormer band (SDPA 1.6), 2-2.6x the tensor-core kernels'; there
+//   R = 3 (169 registers) is 7-10% faster than R = 4 (221, one block of 5
+//   warps an SM) and R = 2 (more K and V reads a score), and 8 keys a
+//   rescale instead of 4 do not help.
 #include "common.cuh"
 #include "mma.cuh"
 
 #include <math.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -68,7 +97,11 @@ constexpr int kMaskedMaxC = 128;         // the masked accumulator: C / 2 regs
 constexpr int kMaxN = 512;
 constexpr int kOuterMaxThreads = 256;
 constexpr int kOuterMaxHd = 32;
-constexpr int kKeys = 4;                 // V4: keys per chunk
+// V4's design constants (each one a step of its ablation in PERF.md)
+constexpr int kOuterTile = 4;            // keys a rescale of the online form
+constexpr int kExactMaxHd = 8;           // HD <= this: two passes, exact max
+constexpr int kRowsHd4 = 8;              // query rows a thread at HD = 4
+constexpr int kRowsHd16 = 3;             // query rows a thread at HD = 16
 
 __host__ __device__ inline int pad16(int n) { return (n + 15) / 16 * 16; }
 
@@ -77,8 +110,80 @@ size_t mma_smem(int n, int C) {
   return sizeof(__nv_bfloat16) * (2 * np * (C + 8) + C * (np + 8));
 }
 
+__host__ __device__ inline size_t round16(size_t bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+// V4: bytes of a batch row's K and V staged in shared memory as float32,
+// each tensor's rows padded to 16 bytes
 size_t outer_smem(int n, int C) {
-  return sizeof(float) * 2 * static_cast<size_t>(n) * C;
+  return 2 * round16(static_cast<size_t>(n) * C * sizeof(float));
+}
+
+// V4: query rows a thread at head width HD
+__host__ __device__ constexpr int outer_rows(int HD) {
+  return HD <= 4 ? kRowsHd4 : HD <= 8 ? 4 : HD <= 16 ? kRowsHd16 : 2;
+}
+
+// a 16-byte word of T values stored at p as float32
+template <typename T>
+__device__ __forceinline__ void store_word(float* p, const uint4& w) {
+  if constexpr (std::is_same_v<T, float>) {
+    *reinterpret_cast<uint4*>(p) = w;
+  } else {                                    // 8 bf16 values: 32 bytes
+    float x[8];
+    vct::Vec16<T>::unpack(w, x);
+    reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
+  }
+}
+
+// HD values of a head's row at p as float32: where kFull (hd == HD, and
+// HD values of T aligned at p), as 8- or 16-byte vectors; else hd scalar
+// loads, and zeros past hd
+template <typename T, int HD, bool kFull>
+__device__ __forceinline__ void load_row(const T* p, int hd,
+                                         float (&x)[HD]) {
+  constexpr int kBytes = HD * sizeof(T);
+  if constexpr (kFull && kBytes >= 16) {
+#pragma unroll
+    for (int w = 0; w < kBytes / 16; ++w)
+      vct::Vec16<T>::unpack(reinterpret_cast<const uint4*>(p)[w],
+                            x + w * vct::Vec16<T>::kN);
+  } else if constexpr (kFull) {               // 4 bf16 values: 8 bytes
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    const float2 a = vct::Vec16<T>::two(w.x), b = vct::Vec16<T>::two(w.y);
+    x[0] = a.x;
+    x[1] = a.y;
+    x[2] = b.x;
+    x[3] = b.y;
+  } else {
+#pragma unroll
+    for (int c = 0; c < HD; ++c) x[c] = c < hd ? vct::to_f32(p[c]) : 0.f;
+  }
+}
+
+// x * inv stored as a head's row at p, as load_row reads it
+template <typename T, int HD, bool kFull>
+__device__ __forceinline__ void store_row(T* p, int hd, const float (&x)[HD],
+                                          float inv) {
+  constexpr int kBytes = HD * sizeof(T);
+  float y[HD];
+#pragma unroll
+  for (int c = 0; c < HD; ++c) y[c] = x[c] * inv;
+  if constexpr (kFull && kBytes >= 16) {
+#pragma unroll
+    for (int w = 0; w < kBytes / 16; ++w)
+      reinterpret_cast<uint4*>(p)[w] =
+          vct::Vec16<T>::pack(y + w * vct::Vec16<T>::kN);
+  } else if constexpr (kFull) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(
+        vct::Vec16<T>::word(y[0], y[1]), vct::Vec16<T>::word(y[2], y[3]));
+  } else {
+#pragma unroll
+    for (int c = 0; c < HD; ++c)
+      if (c < hd) p[c] = vct::from_f32<T>(y[c]);
+  }
 }
 
 template <bool kMasked>
@@ -250,97 +355,151 @@ heads_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename T, int HD>
+// V4: one block per batch row. K and V of the row staged as float32 in
+// shared memory, [K | V], each n x C values padded to 16 bytes, by
+// 16-byte loads where `vec16`, else value by value. kFull: hd == HD and
+// q, o aligned for HD-value vectors.
+template <typename T, int HD, bool kFull>
 __global__ void __launch_bounds__(kOuterMaxThreads)
 heads_outer_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, T* __restrict__ o, int n, int h,
-                   int hd, float scale) {
-  constexpr int R = 32 / HD;                 // query rows per thread
-  extern __shared__ float smem[];
+                   int hd, float scale_log2, int vec16) {
+  constexpr int R = outer_rows(HD);
+  constexpr int kT = kOuterTile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int C = h * hd;
-  float* sK = smem;                          // [n][C]
-  float* sV = smem + n * C;
-  const long long row0 = static_cast<long long>(blockIdx.x) * n * C;
-  for (int idx = threadIdx.x; idx < n * C; idx += blockDim.x) {
-    sK[idx] = vct::to_f32(k[row0 + idx]);
-    sV[idx] = vct::to_f32(v[row0 + idx]);
+  const size_t nc = static_cast<size_t>(n) * C;
+  const size_t region = round16(nc * sizeof(float));
+  float* sK = reinterpret_cast<float*>(smem_raw);
+  float* sV = reinterpret_cast<float*>(smem_raw + region);
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * nc;
+
+  if (vec16) {
+    constexpr int kN = vct::Vec16<T>::kN;        // values a 16-byte word
+    const int words = static_cast<int>(nc / kN);
+    const uint4* gk = reinterpret_cast<const uint4*>(k + row0);
+    const uint4* gv = reinterpret_cast<const uint4*>(v + row0);
+#pragma unroll 4
+    for (int w = threadIdx.x; w < words; w += blockDim.x) {
+      const uint4 a = gk[w], b = gv[w];
+      store_word<T>(sK + w * kN, a);
+      store_word<T>(sV + w * kN, b);
+    }
+  } else {
+    for (size_t i = threadIdx.x; i < nc; i += blockDim.x) {
+      sK[i] = vct::to_f32(k[row0 + i]);
+      sV[i] = vct::to_f32(v[row0 + i]);
+    }
   }
   __syncthreads();
 
+  const T* qb = q + row0;
+  T* ob = o + row0;
   const int groups = (n + R - 1) / R;
   for (int task = threadIdx.x; task < h * groups; task += blockDim.x) {
-    const int head = task / groups, r0 = (task - head * groups) * R;
-    const int c0 = head * hd;
-    float qr[R][HD], acc[R][HD], m[R], l[R];
+    const int g = task / h, head = task - g * h;
+    const int c0 = head * hd, i0 = g * R;
+    // rows past n repeat row n - 1 and are not stored
+    float qr[R][HD];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int i = r0 + r;
+      load_row<T, HD, kFull>(
+          qb + static_cast<size_t>(min(i0 + r, n - 1)) * C + c0, hd, qr[r]);
 #pragma unroll
-      for (int c = 0; c < HD; ++c) {
-        qr[r][c] = (i < n && c < hd)
-                       ? vct::to_f32(q[row0 + static_cast<long long>(i) * C +
-                                       c0 + c])
-                       : 0.f;
-        acc[r][c] = 0.f;
-      }
+      for (int c = 0; c < HD; ++c) qr[r][c] *= scale_log2;
+    }
+    float m[R], l[R], acc[R][HD];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
       m[r] = -INFINITY;
       l[r] = 0.f;
+#pragma unroll
+      for (int c = 0; c < HD; ++c) acc[r][c] = 0.f;
     }
-    for (int j0 = 0; j0 < n; j0 += kKeys) {
-      float s[R][kKeys] = {};
-      // hd rank-1 updates: score (r, jj) += q[r][c] * k[j0 + jj][c]
-#pragma unroll
-      for (int c = 0; c < HD; ++c) {
-        if (c >= hd) continue;
-#pragma unroll
-        for (int jj = 0; jj < kKeys; ++jj) {
-          const float kv = j0 + jj < n ? sK[(j0 + jj) * C + c0 + c] : 0.f;
-#pragma unroll
-          for (int r = 0; r < R; ++r) s[r][jj] = fmaf(qr[r][c], kv, s[r][jj]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float mx = m[r];
-#pragma unroll
-        for (int jj = 0; jj < kKeys; ++jj) {
-          s[r][jj] = j0 + jj < n ? s[r][jj] * scale : -INFINITY;
-          mx = fmaxf(mx, s[r][jj]);
-        }
-        if (mx > m[r]) {                       // rescale only on a new max
-          const float alpha = __expf(m[r] - mx);
-          l[r] *= alpha;
-#pragma unroll
-          for (int c = 0; c < HD; ++c) acc[r][c] *= alpha;
-          m[r] = mx;
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < kKeys; ++jj) {
-        if (j0 + jj >= n) continue;
-        float vv[HD];
-#pragma unroll
-        for (int c = 0; c < HD; ++c)
-          vv[c] = c < hd ? sV[(j0 + jj) * C + c0 + c] : 0.f;
+    if constexpr (HD <= kExactMaxHd) {
+      // pass 1: each row's exact maximum (base-2 scores)
+#pragma unroll 2
+      for (int j = 0; j < n; ++j) {
+        float kv[HD];
+        load_row<float, HD, kFull>(sK + j * C + c0, hd, kv);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float p = __expf(s[r][jj] - m[r]);
+          float x = 0.f;
+#pragma unroll
+          for (int c = 0; c < HD; ++c) x = fmaf(qr[r][c], kv[c], x);
+          m[r] = fmaxf(m[r], x);
+        }
+      }
+      // pass 2: P = 2^(s - m) and P.V, no rescale
+#pragma unroll 2
+      for (int j = 0; j < n; ++j) {
+        float kv[HD], vv[HD];
+        load_row<float, HD, kFull>(sK + j * C + c0, hd, kv);
+        load_row<float, HD, kFull>(sV + j * C + c0, hd, vv);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float x = -m[r];
+#pragma unroll
+          for (int c = 0; c < HD; ++c) x = fmaf(qr[r][c], kv[c], x);
+          const float p = vct::ex2_approx(x);
           l[r] += p;
 #pragma unroll
           for (int c = 0; c < HD; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
         }
       }
+    } else {
+      // one pass; every row rescaled once per tile of kT keys
+      auto tile = [&](int j0, auto masked) {
+        constexpr bool kMask = decltype(masked)::value;   // keys past n
+        float sc[R][kT];
+#pragma unroll
+        for (int jj = 0; jj < kT; ++jj) {
+          const int j = kMask ? min(j0 + jj, n - 1) : j0 + jj;
+          float kv[HD];
+          load_row<float, HD, kFull>(sK + j * C + c0, hd, kv);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float x = 0.f;
+#pragma unroll
+            for (int c = 0; c < HD; ++c) x = fmaf(qr[r][c], kv[c], x);
+            sc[r][jj] = kMask && j0 + jj >= n ? -INFINITY : x;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float mt = m[r];
+#pragma unroll
+          for (int jj = 0; jj < kT; ++jj) mt = fmaxf(mt, sc[r][jj]);
+          const float alpha = vct::ex2_approx(m[r] - mt);
+          l[r] *= alpha;
+#pragma unroll
+          for (int c = 0; c < HD; ++c) acc[r][c] *= alpha;
+          m[r] = mt;
+        }
+#pragma unroll
+        for (int jj = 0; jj < kT; ++jj) {
+          const int j = kMask ? min(j0 + jj, n - 1) : j0 + jj;
+          float vv[HD];
+          load_row<float, HD, kFull>(sV + j * C + c0, hd, vv);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float p = vct::ex2_approx(sc[r][jj] - m[r]);
+            l[r] += p;
+#pragma unroll
+            for (int c = 0; c < HD; ++c)
+              acc[r][c] = fmaf(p, vv[c], acc[r][c]);
+          }
+        }
+      };
+      int j0 = 0;
+      for (; j0 + kT <= n; j0 += kT) tile(j0, std::false_type());
+      if (j0 < n) tile(j0, std::true_type());
     }
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = r0 + r;
-      if (i >= n) continue;
-      const float inv = 1.f / l[r];
-      T* dst = o + row0 + static_cast<long long>(i) * C + c0;
-#pragma unroll
-      for (int c = 0; c < HD; ++c)
-        if (c < hd) dst[c] = vct::from_f32<T>(acc[r][c] * inv);
-    }
+    for (int r = 0; r < R; ++r)
+      if (i0 + r < n)
+        store_row<T, HD, kFull>(ob + static_cast<size_t>(i0 + r) * C + c0,
+                                hd, acc[r], 1.f / l[r]);
   }
 }
 
@@ -358,31 +517,49 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kFull>
 int launch_outer(const void* q, const void* k, const void* v, void* o, int B,
                  int n, int h, int hd, float scale, cudaStream_t stream) {
-  const size_t smem = outer_smem(n, h * hd);
-  cudaError_t err = vct::allow_smem(heads_outer_kernel<T, HD>, smem);
+  const int C = h * hd;
+  const size_t smem = outer_smem(n, C);
+  const auto kernel = heads_outer_kernel<T, HD, kFull>;
+  cudaError_t err = vct::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tasks = h * ((n + 32 / HD - 1) / (32 / HD));
-  const int warps = (tasks + 31) / 32;
-  const int threads = warps * 32 < kOuterMaxThreads ? warps * 32
-                                                    : kOuterMaxThreads;
-  heads_outer_kernel<T, HD><<<B, threads, smem, stream>>>(
+  // threads sized to the row's tasks, in as few rounds as 256 allow
+  constexpr int R = outer_rows(HD);
+  const int tasks = h * ((n + R - 1) / R);
+  const int rounds = (tasks + kOuterMaxThreads - 1) / kOuterMaxThreads;
+  const int threads = ((tasks + rounds - 1) / rounds + 31) / 32 * 32;
+  const int vec16 = static_cast<size_t>(n) * C * sizeof(T) % 16 == 0 &&
+                    vct::aligned16(k) && vct::aligned16(v);
+  kernel<<<B, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), n, h, hd, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), n, h, hd,
+      scale * vct::kLog2e, vec16);
   return static_cast<int>(cudaGetLastError());
+}
+
+// kFull where hd == HD and q and o hold whole HD-value vectors (K and V
+// rows are aligned in shared memory by construction)
+template <typename T, int HD>
+int outer_by_fit(const void* q, const void* k, const void* v, void* o,
+                 int B, int n, int h, int hd, float scale, cudaStream_t st) {
+  const size_t vec = std::min<size_t>(16, HD * sizeof(T));
+  if (hd == HD && reinterpret_cast<uintptr_t>(q) % vec == 0 &&
+      reinterpret_cast<uintptr_t>(o) % vec == 0)
+    return launch_outer<T, HD, true>(q, k, v, o, B, n, h, hd, scale, st);
+  return launch_outer<T, HD, false>(q, k, v, o, B, n, h, hd, scale, st);
 }
 
 // HD: the register width of a head, the least of 4, 8, 16, 32 >= hd
 template <typename T>
 int outer_by_hd(const void* q, const void* k, const void* v, void* o, int B,
                 int n, int h, int hd, float scale, cudaStream_t st) {
-  if (hd <= 4) return launch_outer<T, 4>(q, k, v, o, B, n, h, hd, scale, st);
-  if (hd <= 8) return launch_outer<T, 8>(q, k, v, o, B, n, h, hd, scale, st);
+  if (hd <= 4) return outer_by_fit<T, 4>(q, k, v, o, B, n, h, hd, scale, st);
+  if (hd <= 8) return outer_by_fit<T, 8>(q, k, v, o, B, n, h, hd, scale, st);
   if (hd <= 16)
-    return launch_outer<T, 16>(q, k, v, o, B, n, h, hd, scale, st);
-  return launch_outer<T, 32>(q, k, v, o, B, n, h, hd, scale, st);
+    return outer_by_fit<T, 16>(q, k, v, o, B, n, h, hd, scale, st);
+  return outer_by_fit<T, 32>(q, k, v, o, B, n, h, hd, scale, st);
 }
 
 }  // namespace
@@ -405,8 +582,8 @@ extern "C" int vct_heads_attention_mma(const void* q, const void* k,
                 : launch_mma<false>(q, k, v, o, B, n, h, hd, scale, st);
 }
 
-// V4: float32 or bf16; hd <= 32, h * hd <= 256, n <= 512, and K and V in
-// float32 within one block's shared memory
+// V4: float32 or bf16; hd <= 32, h * hd <= 256, n <= 512, and K and V of a
+// batch row within one block's shared memory
 extern "C" int vct_heads_attention_outer(int dtype, const void* q,
                                          const void* k, const void* v,
                                          void* o, int B, int n, int h, int hd,

@@ -3,7 +3,7 @@
 // Replaces the tuning probe perf/scan_bm_sweep.py `_scan_kernel_bm`
 // (launched by `scan_bm`), which asked whether the scan can read the
 // mixer's batch-major layout directly instead of being fed by transposes.
-// It computes K1's recurrence (csrc/selective_scan.cu), forward only:
+// It computes K1's recurrence (csrc/selective_scan_fwd.cu), forward only:
 //   h_t = exp(dt_t * A[d]) * h_{t-1} + (dt_t * u_t) * B_t
 //   y_t = C_t . h_t + D[d] * u_t
 // with u, dt, y (b, L, d) and B, C (b, L, n); A (d, n) and D (d,) float32.

@@ -1,8 +1,11 @@
-// K1: selective-scan forward (Mamba-1 recurrence), lane-major layout.
+// K1: selective-scan forward (Mamba-1 recurrence), lane-major layout,
+// and V1, the grid of K1's own design.
 //
-// Replaces the Pallas TPU kernel vit_cnn_tpu/ops/selective_scan.py
-// `_scan_kernel` (launched by `_pallas_forward`). Computes, per stream s,
-// channel d and sequence b:
+// K1 replaces the Pallas TPU kernel vit_cnn_tpu/ops/selective_scan.py
+// `_scan_kernel` (launched by `_pallas_forward`). V1 replaces the tuning
+// probe perf/scan_sweep.py `_kernel_lanemajor` (launched by
+// `scan_lanemajor_pre`), which swept that TPU kernel's tile and time
+// chunk. Both compute, per stream s, channel d and sequence b:
 //   h_t = exp(dt_t * A[d]) * h_{t-1} + (dt_t * u_t) * B_t
 //   y_t = C_t . h_t + D[d] * u_t
 // over t = 0..L-1, or L-1..0 when `reverse` is set, with the n-wide state
@@ -18,11 +21,19 @@
 // instructions; its ~7 bytes of traffic in bf16 take about half as long
 // as the exps. So the kernel is bound by the exp rate.
 //
-// Design (the first K1, kept as the (8, 8) instance of V1 in
-// csrc/selective_scan.cu, read B_t and C_t from shared memory once per
+// One kernel template, `selective_scan_fwd_kernel<T, R, kSteps, kPair>`:
+// R channels a thread by kSteps time steps a staging buffer. K1 is its
+// instance (R = `plan(...)`, kSteps = kChunk); V1
+// (`vct_selective_scan_tiled`) is its grid, 4 warps x R in {1, 2, 4}
+// channels a block by kSteps in {2, 4, 8}, so a sweep of V1 is a sweep of
+// K1's own design space and its instance at K1's plan is K1 itself. (V1 was
+// first the first K1's kernel, templated over channels a block x staged
+// steps; that design's times are in PERF.md, Findings.)
+//
+// Design (the first K1 read B_t and C_t from shared memory once per
 // channel, as 32 scalar loads per step, took each exp with the precise
 // expf, and waited on device memory at every chunk):
-// - A thread owns R channels (R = 2 or 4) of one sequence. Every B_t[i]
+// - A thread owns R channels (R = 1, 2 or 4) of one sequence. Every B_t[i]
 //   and C_t[i] it reads from shared memory serves its R channels, so the
 //   shared-memory traffic per channel-step falls R-fold.
 // - B and C are staged as float32 in [step][lane][20] rows: a thread's n
@@ -36,20 +47,24 @@
 //   registers it took R x 16 of them, 250 at R = 4, and the resident warps
 //   fell to 8 per SM.
 // - Loads overlap compute. B and C are double-buffered by chunks of
-//   kChunk steps: at step k of chunk c every thread loads its share of
+//   kSteps steps: at step k of chunk c every thread loads its share of
 //   step k of chunk c + 1 into registers before computing, and stores it
 //   (converted and transposed) after, so one barrier per chunk swaps the
 //   buffers and none waits on device memory. u and dt of step t + 1 are
 //   loaded while step t computes. Loaded values stay raw until used:
 //   converting a bf16 value right after its load waits for the load there.
-// - Staging costs few instructions: a block is 4 warps, so each thread
-//   stages 8 values a step, two lanes of four state entries, as four
-//   4-byte (bf16) or 8-byte (float32) loads where b is even (kPair) and
-//   two 128-bit shared stores. Its byte offsets are computed once, and a
-//   masked lane, channel or state entry loads a valid element (staged as
-//   0 where the state entry is past n, and never stored), so no load
-//   takes a branch.
-// - The tile is 32 sequences by 4 warps x R channels. R is chosen on the
+// - Staging costs few instructions: a block is 4 warps whatever R is, so
+//   each thread stages 8 values a step, two lanes of four state entries,
+//   as four 4-byte (bf16) or 8-byte (float32) loads where b is even
+//   (kPair) and two 128-bit shared stores. Its byte offsets are computed
+//   once, and a masked lane, channel or state entry loads a valid element
+//   (staged as 0 where the state entry is past n, and never stored), so no
+//   load takes a branch.
+// - The buffers take 2 x 2 x kSteps x 32 x 20 floats: static shared memory
+//   up to kSteps = kStaticSteps (41,984 B with A at K1's 4 steps), dynamic
+//   shared memory above it (81,920 B at 8 steps, its cap raised per
+//   instance), so K1's instance keeps the static layout it always had.
+// - K1's tile is 32 sequences by 4 warps x R channels. R is chosen on the
 //   host by the same formula as ops/selective_scan.py `scan_tile` (`plan`
 //   below). bf16 takes R = 2: at R = 4 the state takes 160 registers, and
 //   the loads are not what holds it back. float32 moves twice the bytes,
@@ -58,6 +73,15 @@
 //   of warps for the card.
 // - n < 16 runs the 16-wide loop on zeros: A, B and C are 0 there, so
 //   those state entries stay 0 and add nothing.
+//
+// What V1's grid shows on an H100 (NVIDIA H100 80GB HBM3, 700 W;
+// tools/scan_sweep.py at the flagship's serving shapes and the probes'
+// batch): K1's own instance is the fastest at 9 of the 12 cases and
+// within 5% of the fastest at the others, in both dtypes. 8 steps a buffer
+// (dynamic shared memory: two blocks an SM) take 1.15-2x its time, R = 1
+// at least 1.3x, and 2 steps about as long as 4. So K1's next gain is
+// fewer instructions a step, not another tile; the exp bound is ~1.0 ms of
+// its ~2.2 ms at serving stage 1.
 #include "common.cuh"
 
 namespace {
@@ -67,7 +91,8 @@ constexpr int kRows = 4;         // warps per block
 constexpr int kThreads = kLanes * kRows;
 constexpr int kMaxN = 16;        // largest state size compiled in
 constexpr int kRow = 20;         // floats per staged (step, lane) row
-constexpr int kChunk = 4;        // steps per staging buffer
+constexpr int kChunk = 4;        // K1's steps per staging buffer
+constexpr int kStaticSteps = 4;  // most steps staged in static shared memory
 constexpr int kMaxChannels = kRows * 4;   // per block, at R = 4
 constexpr float kLog2e = 1.4426950408889634f;
 // float32 takes R = 4 where the launch has at least kFillWarps warps (two
@@ -83,9 +108,15 @@ int plan(int dtype, int ns, int d, int b) {
   return dtype == vct::kF32 && fills ? 4 : 2;
 }
 
-// kPair: b is even, so the block stages B and C two lanes at a time (one
-// 4-byte bf16 or 8-byte float32 load); otherwise one lane at a time
-template <typename T, int R, bool kPair>
+// bytes of the B and C buffers of kSteps steps
+constexpr size_t staging_bytes(int steps) {
+  return sizeof(float) * 2 * 2 * steps * kLanes * kRow;
+}
+
+// kSteps: steps a staging buffer. kPair: b is even, so the block stages B
+// and C two lanes at a time (one 4-byte bf16 or 8-byte float32 load);
+// otherwise one lane at a time
+template <typename T, int R, int kSteps, bool kPair>
 __global__ void __launch_bounds__(kThreads)
 selective_scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
                           const float* __restrict__ A,
@@ -93,11 +124,22 @@ selective_scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
                           const float* __restrict__ Dv, T* __restrict__ y,
                           int L, int d, int n, int b, int reverse) {
   using P = typename vct::PairOf<T>::type;
-  // staged B (sBC[0]) and C (sBC[1]): two buffers of kChunk steps of
-  // [lane][kRow] float32 rows; A of the block's channels, pre-scaled
-  __shared__ __align__(16) float sBC[2][2][kChunk][kLanes][kRow];
+  // staged B (sBC[0]) and C (sBC[1]): two buffers of kSteps steps of
+  // [lane][kRow] float32 rows; A of the block's channels, pre-scaled. The
+  // static array is declared here in every instance (one 16-byte row where
+  // the buffers are dynamic): declared inside a branch, K1 compiled to
+  // other SASS.
+  constexpr bool kStatic = kSteps <= kStaticSteps;
+  __shared__ __align__(16) float sBC_static[kStatic ? 2 : 1][kStatic ? 2 : 1]
+                                           [kStatic ? kSteps : 1]
+                                           [kStatic ? kLanes : 1]
+                                           [kStatic ? kRow : 4];
   __shared__ __align__(16) float sA[kMaxChannels][kMaxN];
-  constexpr int kBuf = kChunk * kLanes * kRow;      // floats per buffer
+  extern __shared__ __align__(16) float sBC_dynamic[];
+  float(*sBC)[2][kSteps][kLanes][kRow] =
+      reinterpret_cast<float(*)[2][kSteps][kLanes][kRow]>(
+          kStatic ? &sBC_static[0][0][0][0][0] : sBC_dynamic);
+  constexpr int kBuf = kSteps * kLanes * kRow;      // floats per buffer
   constexpr int kStep = kLanes * kRow;              // floats per step
 
   const int lane = threadIdx.x;
@@ -202,7 +244,7 @@ selective_scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   };
 
   // chunk 0, staged before the loop
-  const int first = min(kChunk, L);
+  const int first = min(kSteps, L);
   for (int k = 0; k < first; ++k) {
     T v[4][2];
     load_stage(k, v);
@@ -212,13 +254,13 @@ selective_scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   load_ud(0, un, dtn);
   __syncthreads();
 
-  for (int base = 0, buf = 0; base < L; base += kChunk, buf ^= 1) {
-    const int tc = min(kChunk, L - base);
-    const int tn = max(0, min(kChunk, L - base - kChunk));  // next chunk
+  for (int base = 0, buf = 0; base < L; base += kSteps, buf ^= 1) {
+    const int tc = min(kSteps, L - base);
+    const int tn = max(0, min(kSteps, L - base - kSteps));  // next chunk
     for (int k = 0; k < tc; ++k) {
       const int pos = base + k;
       T v[4][2];
-      if (k < tn) load_stage(pos + kChunk, v);
+      if (k < tn) load_stage(pos + kSteps, v);
       float uv[R], dtv[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -274,56 +316,93 @@ selective_scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   }
 }
 
-template <typename T, int R>
+template <typename T, int R, int kSteps>
 int launch(const void* u, const void* dt, const float* A, const void* B,
            const void* C, const float* D, void* y, int ns, int L, int d,
            int n, int b, int reverse, cudaStream_t stream) {
+  // instances above kStaticSteps stage in dynamic shared memory
+  constexpr size_t smem =
+      kSteps <= kStaticSteps ? 0 : staging_bytes(kSteps);
   dim3 block(kLanes, kRows);
   dim3 grid((b + kLanes - 1) / kLanes, (d + kRows * R - 1) / (kRows * R),
             ns);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const auto args = [&](auto kernel) {
-    kernel<<<grid, block, 0, stream>>>(
+    const cudaError_t err = vct::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, block, smem, stream>>>(
         static_cast<const T*>(u), static_cast<const T*>(dt), A,
         static_cast<const T*>(B), static_cast<const T*>(C), D,
         static_cast<T*>(y), L, d, n, b, reverse);
+    return cudaSuccess;
   };
-  if (b % 2 == 0)
-    args(selective_scan_fwd_kernel<T, R, true>);
-  else
-    args(selective_scan_fwd_kernel<T, R, false>);
+  const cudaError_t err =
+      b % 2 == 0 ? args(selective_scan_fwd_kernel<T, R, kSteps, true>)
+                 : args(selective_scan_fwd_kernel<T, R, kSteps, false>);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int R>
+int by_steps(int steps, const void* u, const void* dt, const float* A,
+             const void* B, const void* C, const float* D, void* y, int ns,
+             int L, int d, int n, int b, int reverse, cudaStream_t stream) {
+  if (steps == 2)
+    return launch<T, R, 2>(u, dt, A, B, C, D, y, ns, L, d, n, b, reverse,
+                           stream);
+  if (steps == 4)
+    return launch<T, R, 4>(u, dt, A, B, C, D, y, ns, L, d, n, b, reverse,
+                           stream);
+  if (steps == 8)
+    return launch<T, R, 8>(u, dt, A, B, C, D, y, ns, L, d, n, b, reverse,
+                           stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the (R, steps) instance; R in {1, 2, 4}, steps in {2, 4, 8}
 template <typename T>
-int by_tile(int R, const void* u, const void* dt, const float* A,
+int by_tile(int R, int steps, const void* u, const void* dt, const float* A,
             const void* B, const void* C, const float* D, void* y, int ns,
             int L, int d, int n, int b, int reverse, cudaStream_t stream) {
+  if (R == 1)
+    return by_steps<T, 1>(steps, u, dt, A, B, C, D, y, ns, L, d, n, b,
+                          reverse, stream);
+  if (R == 2)
+    return by_steps<T, 2>(steps, u, dt, A, B, C, D, y, ns, L, d, n, b,
+                          reverse, stream);
   if (R == 4)
-    return launch<T, 4>(u, dt, A, B, C, D, y, ns, L, d, n, b, reverse,
-                        stream);
-  return launch<T, 2>(u, dt, A, B, C, D, y, ns, L, d, n, b, reverse, stream);
+    return by_steps<T, 4>(steps, u, dt, A, B, C, D, y, ns, L, d, n, b,
+                          reverse, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int scan(int dtype, int R, int steps, const void* u, const void* dt,
+         const float* A, const void* B, const void* C, const float* D,
+         void* y, int ns, int L, int d, int n, int b, int reverse,
+         void* stream) {
+  if (n < 1 || n > kMaxN || ns > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ns == 0 || L == 0 || d == 0 || b == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == vct::kF32)
+    return by_tile<float>(R, steps, u, dt, A, B, C, D, y, ns, L, d, n, b,
+                          reverse, st);
+  if (dtype == vct::kBF16)
+    return by_tile<__nv_bfloat16>(R, steps, u, dt, A, B, C, D, y, ns, L, d,
+                                  n, b, reverse, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// K1: the instance at (plan(...), kChunk)
 extern "C" int vct_selective_scan(int dtype, const void* u, const void* dt,
                                   const float* A, const void* B,
                                   const void* C, const float* D, void* y,
                                   int ns, int L, int d, int n, int b,
                                   int reverse, void* stream) {
-  if (n < 1 || n > kMaxN || ns > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (ns == 0 || L == 0 || d == 0 || b == 0) return 0;
-  const int R = plan(dtype, ns, d, b);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == vct::kF32)
-    return by_tile<float>(R, u, dt, A, B, C, D, y, ns, L, d, n, b, reverse,
-                          st);
-  if (dtype == vct::kBF16)
-    return by_tile<__nv_bfloat16>(R, u, dt, A, B, C, D, y, ns, L, d, n, b,
-                                  reverse, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return scan(dtype, plan(dtype, ns, d, b), kChunk, u, dt, A, B, C, D, y, ns,
+              L, d, n, b, reverse, stream);
 }
 
 // K1's channels per thread R for a launch: the card tests hold it equal
@@ -333,4 +412,19 @@ extern "C" int vct_selective_scan_tile(int dtype, int ns, int L, int d,
   (void)L;
   (void)n;
   return plan(dtype, ns, d, b);
+}
+
+// V1: the (rows, chunk) instance of the grid, rows = 4 x R channels a block
+// in {4, 8, 16} and chunk steps a staging buffer in {2, 4, 8}; anything
+// else is cudaErrorInvalidValue. (4 x plan(...), kChunk) is K1.
+extern "C" int vct_selective_scan_tiled(int dtype, const void* u,
+                                        const void* dt, const float* A,
+                                        const void* B, const void* C,
+                                        const float* D, void* y, int ns,
+                                        int L, int d, int n, int b,
+                                        int reverse, int rows, int chunk,
+                                        void* stream) {
+  if (rows % kRows != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return scan(dtype, rows / kRows, chunk, u, dt, A, B, C, D, y, ns, L, d, n,
+              b, reverse, stream);
 }

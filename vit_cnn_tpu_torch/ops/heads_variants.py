@@ -15,7 +15,12 @@ only as they are, both in ``csrc/heads_variants.cu``:
   rank-1 score updates; C's and E's per-channel products summed per
   head) on the CUDA cores, float32 or bf16, several query rows per thread.
   Its float32 scores, P and P.V are also A's and B's arithmetic (float32
-  dots on inputs cast up).
+  dots on inputs cast up). One block a batch row stages the row's K and
+  V as float32 by 16-byte loads (:func:`outer_smem`); q is read as
+  vectors of a head's hd values and pre-scaled so that each P is one
+  ``ex2.approx``; at hd <= 8 a first pass takes each row's exact maximum
+  and the second accumulates with no rescale, at larger hd one pass
+  rescales once per tile of 4 keys.
 
 Both compute :func:`.attention.attention_reference_heads` with
 ``residual=False`` (their plain version) on q, k, v (B, n, h, hd): the
@@ -46,8 +51,9 @@ def mma_smem(n: int, c: int) -> int:
 
 
 def outer_smem(n: int, c: int) -> int:
-    """Bytes of one V4 block: k and v of all heads in float32."""
-    return 4 * 2 * n * c
+    """Bytes of one V4 block: k and v of all heads of one batch row,
+    staged as float32, each padded to 16 bytes."""
+    return 2 * (-(-4 * n * c // 16) * 16)
 
 
 def _check(q, k, v):

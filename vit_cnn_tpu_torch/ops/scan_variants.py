@@ -2,14 +2,14 @@
 
 Ports of the JAX package's tuning probes, forward only as they are:
 
-* :func:`selective_scan_tiled` — V1 (``csrc/selective_scan.cu``, the
-  counterpart of ``perf/scan_sweep.py`` ``_kernel_lanemajor``): the first
-  K1's kernel at one instance of its (channels per block, staged time
-  steps) grid, :data:`TILE_ROWS` x :data:`TILE_CHUNKS`. The (8, 8)
-  instance is that first K1 itself; the main path's K1
-  (:func:`.selective_scan.selective_scan`) is ``csrc/selective_scan_fwd.cu``.
-  Its plain version is :func:`.selective_scan.selective_scan_reference`;
-  lane-major layout.
+* :func:`selective_scan_tiled` — V1 (``csrc/selective_scan_fwd.cu``
+  ``vct_selective_scan_tiled``, the counterpart of ``perf/scan_sweep.py``
+  ``_kernel_lanemajor``): K1's own kernel template at one instance of
+  its (channels per block, staged time steps) grid, :data:`TILE_ROWS` x
+  :data:`TILE_CHUNKS`: 4 warps x R in {1, 2, 4} channels a thread, by 2,
+  4 or 8 steps a staging buffer. The instance at K1's plan
+  (:func:`k1_instance`) is K1 itself, bit for bit. Its plain version is
+  :func:`.selective_scan.selective_scan_reference`; lane-major layout.
 * :func:`selective_scan_batch_major` — V2 (``csrc/scan_variants.cu``, the
   counterpart of ``perf/scan_bm_sweep.py`` ``_scan_kernel_bm``): the scan
   read and written in the mixer's batch-major layout, u, dt (b, L, d) and
@@ -27,16 +27,26 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .selective_scan import _check, _dims, selective_scan_reference
+from .selective_scan import (SCAN_CHUNK, _check, _dims, scan_tile,
+                             selective_scan_reference)
 
-TILE_ROWS = (4, 8, 16)       # channels per block
-TILE_CHUNKS = (8, 16, 27)    # time steps of B and C staged per sync
+TILE_ROWS = (4, 8, 16)       # channels per block: 4 warps x R in {1, 2, 4}
+TILE_CHUNKS = (2, 4, 8)      # time steps of B and C a staging buffer
 MAX_STATE = 16               # n compiled into the kernels
 BATCH_MAJOR_MAX_D = 1024     # V2: one thread per channel of a sequence
 
 
+def k1_instance(ns: int, L: int, d: int, n: int, b: int,
+                dtype=torch.bfloat16):
+    """The (rows, chunk) instance of V1's grid that K1 launches for this
+    shape: rows = 4 warps x K1's R (:func:`.selective_scan.scan_tile`),
+    chunk = K1's :data:`.selective_scan.SCAN_CHUNK` steps."""
+    R, warps = scan_tile(ns, L, d, n, b, dtype)
+    return warps * R, SCAN_CHUNK
+
+
 def selective_scan_tiled(u, dt, A, B, C, D, reverse: bool = False,
-                         rows: int = 8, chunk: int = 8):
+                         rows: int = 8, chunk: int = 4):
     """The scan on u's device: the plain version on the CPU, the (rows,
     chunk) instance of K1's grid (V1) on CUDA. Layouts as K1's: u, dt
     (L, d, b) or (ns, L, d, b); B, C (L, n, b) or (ns, L, n, b)."""

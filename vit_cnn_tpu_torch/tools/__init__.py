@@ -5,8 +5,8 @@
   python -m vit_cnn_tpu_torch.tools.profile_serve       # serving profile
   python -m vit_cnn_tpu_torch.tools.scan_sweep          # K1's variants
   python -m vit_cnn_tpu_torch.tools.heads_attn_variants # K8's variants
-  python -m vit_cnn_tpu_torch.tools.scan_ab OTHER.cu    # old K1 vs V1 (8, 8)
-  python -m vit_cnn_tpu_torch.tools.kernel_ablation KIND A.cu ... # K1-K7 copies
+  python -m vit_cnn_tpu_torch.tools.scan_ab OTHER.cu    # old K1 vs K1, V1
+  python -m vit_cnn_tpu_torch.tools.kernel_ablation KIND A.cu ... # K1-K7, V4
   python -m vit_cnn_tpu_torch.tools.mesh_check --ranks 4   # the mesh, 4 cards
   python -m vit_cnn_tpu_torch.tools.bench_models [MODEL ...] # per-model table
 
@@ -20,11 +20,12 @@ sweeps time the scan's and head-last attention's variants
 (ops/scan_variants.py, ops/heads_variants.py) at the serving shapes and
 the probes' shapes against their bounds (:func:`bound`, with CUDA-event medians,
 :func:`median_ms`); ``chip_smoke.py`` calls the same functions.
-``scan_ab`` times an older commit's K1 beside this checkout's V1 (8, 8),
-the first K1 kept as a template, on the same inputs (:func:`scan_inputs`);
-``kernel_ablation`` builds copies of K1-K7 (variants, or another
+``scan_ab`` times an older commit's K1 beside this checkout's K1 and V1
+at K1's plan (one kernel template) on the same inputs
+(:func:`scan_inputs`), bit for bit and SASS against SASS;
+``kernel_ablation`` builds copies of K1-K7 and V4 (variants, or another
 commit's file) and times them side by side (KIND: scan, conv, sum,
-attn, scan_bwd, conv_bwd or sum_bwd). ``bench_models``, the twin of the
+attn, scan_bwd, conv_bwd, sum_bwd or outer). ``bench_models``, the twin of the
 JAX package's ``perf/bench_models.py``, gives each of the 14 registry
 models a serving row and a train row (median and spread of repeated
 runs, the train step's device time beside its host time), stamped with

@@ -17,7 +17,8 @@ times with CUDA-event medians:
   bf16 only, and masked only where h * hd is a multiple of 16 up to 128;
 * ``V4``: the CUDA-core kernel (``heads_attention_outer``), scores as hd
   rank-1 updates (H; C and E; and A and B, whose float32 dots and float32
-  P are its arithmetic).
+  P are its arithmetic): one block a batch row, K and V staged as
+  float32 by 16-byte loads.
 
 Each is held to the plain version (``attention_reference_heads``,
 residual off) on the same inputs (``ok``: within the dtype's tolerance,

@@ -1,33 +1,36 @@
-"""Sources of K1-K7 built side by side and timed on the card.
+"""Sources of K1-K7 and V4 built side by side and timed on the card.
 
-  python -m vit_cnn_tpu_torch.tools.kernel_ablation scan|conv|sum|attn|scan_bwd|conv_bwd|sum_bwd A.cu [B.cu ...]
+  python -m vit_cnn_tpu_torch.tools.kernel_ablation outer|scan|conv|sum|attn|scan_bwd|conv_bwd|sum_bwd A.cu [B.cu ...]
 
 Each source is a copy of ``csrc/selective_scan_fwd.cu`` (``scan``, K1),
 ``csrc/dirstream.cu`` (``conv``, K2; ``sum``, K3),
 ``csrc/attention.cu`` (``attn``, K4), ``csrc/selective_scan_bwd.cu``
-(``scan_bwd``, K5) or ``csrc/dirstream_bwd.cu`` (``conv_bwd``, K6;
-``sum_bwd``, K7) with ``common.cuh`` beside it: a variant under study,
+(``scan_bwd``, K5), ``csrc/dirstream_bwd.cu`` (``conv_bwd``, K6;
+``sum_bwd``, K7) or ``csrc/heads_variants.cu`` (``outer``, V4) with
+``common.cuh`` (and ``mma.cuh``) beside it: a variant under study,
 or another commit's file unpacked with ``git archive``. Each is built
 alone with the port's nvcc flags and ``-Xptxas -v``, and the registers,
 spill bytes and shared memory of its kernels are printed as one JSON
 line. Then each source's entry point (``vct_selective_scan``,
 ``vct_dir_conv_silu``, ``vct_inv_perm_weighted_sum``, ``vct_attention``,
-or a backward entry point with its workspace: ``vct_selective_scan_bwd``,
-``vct_dir_conv_silu_bwd``, ``vct_inv_perm_weighted_sum_bwd``; the main
-path's C signatures) runs on the same inputs at the flagship's shapes
-(:data:`SCAN_CASES`, :data:`CONV_CASES`, :data:`SUM_CASES`,
-:data:`ATTN_CASES`, :data:`SCAN_BWD_CASES`, :data:`CONV_BWD_CASES`,
-:data:`SUM_BWD_CASES`: each kernel's launches on the main path, the
-adjoints' those of a train step) in bf16 and float32: per shape and
+``vct_heads_attention_outer``, or a backward entry point with its
+workspace: ``vct_selective_scan_bwd``, ``vct_dir_conv_silu_bwd``,
+``vct_inv_perm_weighted_sum_bwd``; the port's C signatures) runs on the
+same inputs at the flagship's shapes (:data:`SCAN_CASES`,
+:data:`CONV_CASES`, :data:`SUM_CASES`, :data:`ATTN_CASES`,
+:data:`SCAN_BWD_CASES`, :data:`CONV_BWD_CASES`, :data:`SUM_BWD_CASES`:
+each kernel's launches on the main path, the adjoints' those of a train
+step; V4 at the attention sweep's shapes, :data:`OUTER_CASES`) in bf16
+and float32: per shape and
 dtype one JSON line with each source's max|diff| against the plain
 version, whether it is within ``tools.TOL`` (K5's outputs, and the
 summed gradients of K6 and K7, sums whose terms cancel, against ``atol +
 rtol * max|want|``), the median of :data:`ROUNDS` CUDA-event medians
 taken in rotating order (the sources in order, then reversed), and for
-K3-K7 the launch's bound (``tools.bound``: bytes, FLOPs, K4's, K5's and
-K6's exps) and for K4 the time of ``scaled_dot_product_attention`` on
-the same inputs. Exit code 1 when a source disagrees with the plain
-version.
+K3-K7 and V4 the launch's bound (``tools.bound``: bytes, FLOPs, K4's,
+K5's, K6's and V4's exps) and for K4 and V4 the time of
+``scaled_dot_product_attention`` on the same inputs. Exit code 1 when a
+source disagrees with the plain version.
 """
 
 from __future__ import annotations
@@ -72,6 +75,11 @@ SCAN_BWD_CASES = (("train stage 1", 6, 81, 72, TRAIN, False),
 CONV_BWD_CASES = (("train stage 1", 81, 72, TRAIN),
                   ("train stage 2", 49, 128, TRAIN))
 SUM_BWD_CASES = CONV_BWD_CASES
+# (label, B, n, h, hd): V4 at tools/heads_attn_variants.py's shapes
+OUTER_CASES = (("probe", 4096, 65, 16, 4),
+               ("MHST pooled band", 7592, 65, 16, 4),
+               ("ViT band n=65", 7592, 65, 4, 16),
+               ("SpectralFormer band", 7620, 146, 4, 16))
 DTYPES = (torch.bfloat16, torch.float32)
 KINDS = {"scan": ("vct_selective_scan", "selective_scan_fwd_kernel"),
          "conv": ("vct_dir_conv_silu", "dir_conv_silu_kernel"),
@@ -80,7 +88,8 @@ KINDS = {"scan": ("vct_selective_scan", "selective_scan_fwd_kernel"),
          "scan_bwd": ("vct_selective_scan_bwd", "selective_scan_bwd_kernel"),
          "conv_bwd": ("vct_dir_conv_silu_bwd", "dir_conv_silu_bwd_kernel"),
          "sum_bwd": ("vct_inv_perm_weighted_sum_bwd",
-                     "inv_perm_weighted_sum_bwd_kernel")}
+                     "inv_perm_weighted_sum_bwd_kernel"),
+         "outer": ("vct_heads_attention_outer", "heads_outer_kernel")}
 
 
 def ptxas_usage(text: str, kernel: str) -> dict:
@@ -444,11 +453,46 @@ def attn_case(entries, names, label, G, lq, lk, dh, dtype):
                 sources=rows)
 
 
+def outer_case(entries, names, label, B, n, h, hd, dtype):
+    import torch.nn.functional as F
+
+    from ..ops import _build
+    from ..ops.attention import attention_reference_heads
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((B, n, h, hd), generator=g, device="cuda")
+               .to(dtype) for _ in range(3))
+    scale = hd ** -0.5
+    want = attention_reference_heads(q, k, v, scale)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def runner(entry):
+        def run():
+            o = torch.empty_like(q)
+            _build.check("vct_heads_attention_outer", entry(
+                _build.dtype_code(q), q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), B, n, h, hd, scale, stream))
+            return o
+        return run
+
+    dn = str(dtype).split(".")[1]
+    bound_ms, bound_by = bound([q, k, v, want], dn, exps=B * h * n * n,
+                               flops=4 * B * h * n * n * hd)
+    rows = _timed([runner(e) for e in entries], names, want, dn)
+    heads_first = lambda t: t.transpose(1, 2)
+    sdpa_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        heads_first(q), heads_first(k), heads_first(v), scale=scale))
+    return dict(case=label, B=B, n=n, h=h, hd=hd, dtype=dn,
+                bound_ms=bound_ms, bound_by=bound_by, sdpa_ms=sdpa_ms,
+                sources=rows)
+
+
 CASES = {"scan": (SCAN_CASES, scan_case), "conv": (CONV_CASES, conv_case),
          "sum": (SUM_CASES, sum_case), "attn": (ATTN_CASES, attn_case),
          "scan_bwd": (SCAN_BWD_CASES, scan_bwd_case),
          "conv_bwd": (CONV_BWD_CASES, conv_bwd_case),
-         "sum_bwd": (SUM_BWD_CASES, sum_bwd_case)}
+         "sum_bwd": (SUM_BWD_CASES, sum_bwd_case),
+         "outer": (OUTER_CASES, outer_case)}
 
 
 def main() -> int:

@@ -1,30 +1,33 @@
-"""An older commit's K1 beside this checkout's V1 (8, 8), on the card.
+"""An older commit's K1 beside this checkout's K1 and V1 at K1's plan.
 
   python -m vit_cnn_tpu_torch.tools.scan_ab OTHER.cu
 
-``OTHER.cu`` is the ``csrc/selective_scan.cu`` of an older commit whose
-K1 (``vct_selective_scan``) was the (8, 8) instance of V1's grid (for
-example the parent's, unpacked with ``git archive``), with its
-``common.cuh`` beside it. It and this checkout's ``csrc/selective_scan.cu``
-(V1, the first K1 kept as a template) are each built with the flags of
-ops/_build.py into a library of their own; OTHER's ``vct_selective_scan``
-and this checkout's ``vct_selective_scan_tiled`` at (8, 8) run on the
-same inputs at the flagship's serving shapes: stage 1 (81, 72) and stage
-2 (49, 128), 6 forward and 4 reverse streams, b = 7,588, in bf16 and
-float32. Per shape it prints, as one JSON line, each side's CUDA-event
-medians from :data:`ROUNDS` rounds run in the order other, this, this,
-other, the median of those, and whether the two outputs are equal bit for
-bit. Then one summary line with, where ``cuobjdump`` is beside ``nvcc``,
-whether each dtype's kernel is the same SASS instruction for instruction
-(the (8, 8) instance of a templated kernel). So it shows whether V1 (8, 8),
-the baseline the sweeps time beside the main path's K1, is still the
-older K1. Exit code 1 when an output differs.
+``OTHER.cu`` is the ``csrc/selective_scan_fwd.cu`` of an older commit
+(for example the parent's, unpacked with ``git archive``), with its
+``common.cuh`` beside it. It and this checkout's
+``csrc/selective_scan_fwd.cu`` (K1's kernel template, whose grid is V1)
+are each built alone with the flags of ops/_build.py into a library of
+their own. At the flagship's serving shapes, stage 1 (81, 72) and stage 2
+(49, 128), 6 forward and 4 reverse streams, b = 7,588, in bf16 and
+float32, three sides run on the same inputs: OTHER's
+``vct_selective_scan`` (``other``), this checkout's (``this``), and this
+checkout's ``vct_selective_scan_tiled`` at K1's plan (``plan``: rows = 4
+x the C plan's R, chunk = K1's 4 steps). Per shape it prints, as one JSON
+line, each side's CUDA-event medians from :data:`ROUNDS` rounds run in
+the order other, this, plan, plan, this, other, the median of those, and
+whether the three outputs are equal bit for bit. Then one summary line
+with, where ``cuobjdump`` is beside ``nvcc``, whether each of OTHER's K1
+instances (dtype x R x paired lanes) is the same SASS, instruction for
+instruction, as this checkout's instance of the template at K1's 4
+steps. So it shows whether K1 is still the older K1 after a change to
+the template it shares with V1. Exit code 1 when an output differs.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -41,15 +44,17 @@ BAND = 7588
 CASES = (("stage 1", 6, 81, 72, False), ("stage 1", 4, 81, 72, True),
          ("stage 2", 6, 49, 128, False), ("stage 2", 4, 49, 128, True))
 DTYPES = (torch.bfloat16, torch.float32)
-# mangled-name tags of the kernel's instances: the (8, 8) instance of a
-# kernel templated on (T, rows, chunk), else the kernel templated on T alone
-SASS_TAGS = {"bfloat16": "I13__nv_bfloat16", "float32": "If"}
+# a K1 instance's mangled template arguments: T, R, (steps,) kPair; an
+# older file's kernel has no steps argument (its steps were 4)
+_INSTANCE = re.compile(r"selective_scan_fwd_kernelI(13__nv_bfloat16|f)"
+                       r"Li(\d+)E(?:Li(\d+)E)?Lb([01])E")
+_DTYPE_TAGS = {"13__nv_bfloat16": "bfloat16", "f": "float32"}
 
 
-def _library(src: Path, name: str, entry: str):
+def _library(src: Path, name: str, entries):
     """``src`` built alone into ``build/vit_cnn_tpu_torch/scan_ab_<name>
     .so`` with the port's nvcc flags: (its path, the library loaded with
-    ``entry``'s C signature)."""
+    each of ``entries``' C signatures)."""
     from ..ops import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -61,9 +66,10 @@ def _library(src: Path, name: str, entry: str):
         raise RuntimeError("{}\n{}".format(" ".join(cmd),
                                            proc.stderr[-4000:]))
     lib = ctypes.CDLL(str(out))
-    fn = getattr(lib, entry)
-    fn.argtypes = _build._SIGNATURES[entry]
-    fn.restype = ctypes.c_int
+    for entry in entries:
+        fn = getattr(lib, entry)
+        fn.argtypes = _build._SIGNATURES[entry]
+        fn.restype = ctypes.c_int
     return out, lib
 
 
@@ -87,49 +93,68 @@ def _sass(path: Path):
     return funcs
 
 
-def _k1_sass(funcs, dtype_name):
-    """The instructions of K1's kernel for one dtype in ``funcs``."""
-    tag = "selective_scan_kernel" + SASS_TAGS[dtype_name]
-    for suffix in ("Li8ELi8EE", "E"):
-        found = [f for f in funcs if tag + suffix in f]
-        if found:
-            return funcs[found[0]]
-    raise KeyError("no {} kernel for {}".format(tag, dtype_name))
+def k1_instances(funcs) -> dict:
+    """{"dtype R=r pair=p": instructions} of the template's instances at
+    K1's 4 steps in ``funcs``."""
+    out = {}
+    for name, code in funcs.items():
+        m = _INSTANCE.search(name)
+        if m and int(m.group(3) or 4) == 4:
+            out["{} R={} pair={}".format(_DTYPE_TAGS[m.group(1)], m.group(2),
+                                         m.group(4))] = code
+    return out
+
+
+def sass_diff(theirs, ours, shown: int = 4) -> dict:
+    """Whether two kernels' SASS is equal, their instruction counts, the
+    number of differing positions and the first ``shown`` of them as
+    (position, theirs, ours)."""
+    diffs = [(i, a, b) for i, (a, b) in enumerate(zip(theirs, ours))
+             if a != b]
+    return dict(equal=theirs == ours, instructions=[len(theirs), len(ours)],
+                differing=len(diffs), first=diffs[:shown])
 
 
 def compare(other_lib, this_lib, label, ns, L, d, reverse, dtype) -> dict:
-    """OTHER's K1 and this checkout's V1 (8, 8) at one shape and dtype;
-    see the module's docstring."""
+    """OTHER's K1, this checkout's K1 and V1 at K1's plan at one shape and
+    dtype; see the module's docstring."""
     from ..ops import _build
+    from ..ops.selective_scan import SCAN_CHUNK, SCAN_ROWS
 
     g = torch.Generator(device="cuda").manual_seed(0)
     u, dt, A, B, C, D = scan_inputs(g, ns, L, d, STATE, BAND, dtype)
+    code = _build.dtype_code(u)
+    rows = SCAN_ROWS * this_lib.vct_selective_scan_tile(code, ns, L, d,
+                                                        STATE, BAND)
     stream = torch.cuda.current_stream().cuda_stream
     outs = {}
 
-    def run(lib, side):
+    def run(side):
         y = outs.setdefault(side, torch.empty_like(u))
-        args = (_build.dtype_code(u), u.data_ptr(), dt.data_ptr(),
-                A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
-                y.data_ptr(), ns, L, d, STATE, BAND, int(reverse))
+        args = (code, u.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                C.data_ptr(), D.data_ptr(), y.data_ptr(), ns, L, d, STATE,
+                BAND, int(reverse))
         if side == "other":
-            code = lib.vct_selective_scan(*args, stream)
+            err = other_lib.vct_selective_scan(*args, stream)
+        elif side == "this":
+            err = this_lib.vct_selective_scan(*args, stream)
         else:
-            code = lib.vct_selective_scan_tiled(*args, 8, 8, stream)
-        _build.check("scan ({})".format(side), code)
+            err = this_lib.vct_selective_scan_tiled(*args, rows, SCAN_CHUNK,
+                                                    stream)
+        _build.check("scan ({})".format(side), err)
 
-    sides = {"other": other_lib, "this": this_lib}
-    times = {"other": [], "this": []}
+    times = {"other": [], "this": [], "plan": []}
     for _ in range(ROUNDS):
-        for side in ("other", "this", "this", "other"):
-            times[side].append(median_ms(lambda: run(sides[side], side)))
+        for side in ("other", "this", "plan", "plan", "this", "other"):
+            times[side].append(median_ms(lambda: run(side)))
     torch.cuda.synchronize()
     return dict(case=label, streams=ns, L=L, d=d, b=BAND, reverse=reverse,
-                dtype=str(dtype).split(".")[1],
-                other_ms=statistics.median(times["other"]),
-                this_ms=statistics.median(times["this"]),
-                other_rounds=times["other"], this_rounds=times["this"],
-                bitwise_equal=torch.equal(outs["other"], outs["this"]))
+                dtype=str(dtype).split(".")[1], plan=[rows, SCAN_CHUNK],
+                **{side + "_ms": statistics.median(t)
+                   for side, t in times.items()},
+                **{side + "_rounds": t for side, t in times.items()},
+                bitwise_equal=torch.equal(outs["other"], outs["this"])
+                and torch.equal(outs["this"], outs["plan"]))
 
 
 def main() -> int:
@@ -139,27 +164,31 @@ def main() -> int:
         raise SystemExit("scan_ab: CUDA is not available")
     other_src = Path(sys.argv[1]).resolve()
     this_src = Path(__file__).resolve().parent.parent / "csrc" / \
-        "selective_scan.cu"
+        "selective_scan_fwd.cu"
     print(card_line(), flush=True)
-    other_path, other_lib = _library(other_src, "other", "vct_selective_scan")
-    this_path, this_lib = _library(this_src, "this",
-                                   "vct_selective_scan_tiled")
+    other_path, other_lib = _library(other_src, "other",
+                                     ["vct_selective_scan"])
+    this_path, this_lib = _library(
+        this_src, "this", ["vct_selective_scan", "vct_selective_scan_tile",
+                           "vct_selective_scan_tiled"])
     results = []
     for case in CASES:
         for dtype in DTYPES:
             results.append(compare(other_lib, this_lib, *case, dtype))
             print(json.dumps(results[-1]), flush=True)
             torch.cuda.empty_cache()
-    sass = {}
+    sass = None
     other_funcs, this_funcs = _sass(other_path), _sass(this_path)
     if other_funcs is not None:
-        for dn in SASS_TAGS:
-            a, b = _k1_sass(other_funcs, dn), _k1_sass(this_funcs, dn)
-            sass[dn] = dict(equal=a == b, instructions=[len(a), len(b)])
+        theirs, ours = k1_instances(other_funcs), k1_instances(this_funcs)
+        sass = {key: sass_diff(code, ours.get(key, []))
+                for key, code in sorted(theirs.items())}
     ok = all(r["bitwise_equal"] for r in results)
-    print(json.dumps({"other": str(other_src), "sass": sass or None,
+    print(json.dumps({"other": str(other_src), "sass": sass,
                       "this_over_other": [r["this_ms"] / r["other_ms"]
-                                          for r in results], "ok": ok}),
+                                          for r in results],
+                      "plan_over_this": [r["plan_ms"] / r["this_ms"]
+                                         for r in results], "ok": ok}),
           flush=True)
     return 0 if ok else 1
 

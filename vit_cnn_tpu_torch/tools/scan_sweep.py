@@ -9,10 +9,12 @@ bf16 and float32, it times with CUDA-event medians:
 
 * ``K1``: the main path's kernel (ops/selective_scan.py,
   csrc/selective_scan_fwd.cu);
-* ``V1 rows=R chunk=T``: every instance of the first K1's grid, R channels
-  per block by T staged time steps (ops/scan_variants.py
-  ``selective_scan_tiled``); its (8, 8) instance is the first K1, so each
-  case times the old K1 beside the new one in the same run;
+* ``V1 rows=R chunk=T``: every instance of the grid of K1's own kernel
+  template, R channels per block (4 warps x 1, 2 or 4 a thread) by T
+  staged time steps (ops/scan_variants.py ``selective_scan_tiled``); its
+  instance at K1's plan (``k1_plan``, ops/scan_variants.py
+  ``k1_instance``) is K1's kernel, so each case times K1 among the
+  neighbours of its design;
 * forward cases only: ``V2``, the batch-major kernel (``selective_scan_
   batch_major``) on the same sequences laid out (ns b, L, d), and ``K1 +
   permutes``, K1 on one stream of those ns b sequences fed and drained by
@@ -24,9 +26,9 @@ within the dtype's tolerance, :data:`TOL`) and reports its time, the
 bound (:func:`~vit_cnn_tpu_torch.tools.bound`: the inputs and output
 once over the HBM rate against one exp per state element and step over
 the exp rate, as ``chip_smoke.py`` reckons K1's), its share of the bound,
-max|diff| and the plain version's time. V1's (8, 8) instance must also
-be within that tolerance of K1 (``close_to_k1``, with ``k1_diff``). Each
-row names the kernel it launches
+max|diff| and the plain version's time. V1's instance at K1's plan must
+also equal K1 bit for bit (``equal_to_k1``). Each row names the kernel it
+launches
 (``kernel``: the launch counter's key). One JSON line per case and dtype,
 then one summary line; the exit code is 1 if any variant disagrees.
 """
@@ -75,7 +77,7 @@ def k1_through_permutes(u, dt, A, B, C, D):
 def sweep(label, ns, L, d, b, reverse, dtype, reps=10,
           plain_reps=3) -> dict:
     """Every variant at one case and dtype; see the module's docstring."""
-    from ..ops.scan_variants import (TILE_CHUNKS, TILE_ROWS,
+    from ..ops.scan_variants import (TILE_CHUNKS, TILE_ROWS, k1_instance,
                                      selective_scan_batch_major,
                                      selective_scan_batch_major_reference,
                                      selective_scan_tiled)
@@ -101,16 +103,18 @@ def sweep(label, ns, L, d, b, reverse, dtype, reps=10,
 
     k1 = add("K1", "selective_scan",
              lambda: selective_scan(*args, reverse=reverse), want, plain_ms)
+    plan = k1_instance(ns, L, d, STATE, b, dtype)
     for rows, chunk in itertools.product(TILE_ROWS, TILE_CHUNKS):
         got = add("V1 rows={} chunk={}".format(rows, chunk),
                   "selective_scan_tiled",
                   lambda r=rows, c=chunk: selective_scan_tiled(
                       *args, reverse=reverse, rows=r, chunk=c),
-                  want, plain_ms, rows=rows, chunk=chunk)
-        if (rows, chunk) == (8, 8):          # the first K1, against K1
-            err, close = compare(got, k1, dn)
-            variants[-1].update(k1_diff=err, close_to_k1=close)
-            variants[-1]["ok"] &= close
+                  want, plain_ms, rows=rows, chunk=chunk,
+                  k1_plan=(rows, chunk) == plan)
+        if (rows, chunk) == plan:            # K1's own instance
+            same = torch.equal(got, k1)
+            variants[-1].update(equal_to_k1=same)
+            variants[-1]["ok"] &= same
         del got
     del k1
     if not reverse:
@@ -131,18 +135,20 @@ def sweep(label, ns, L, d, b, reverse, dtype, reps=10,
 
 
 def summary(results) -> dict:
-    """Per case and dtype: K1's time, the first K1's (V1 (8, 8)) and K1
-    over it, the fastest V1 instance, and V2 against K1 + permutes."""
+    """Per case and dtype: K1's time, V1's instance at K1's plan, the
+    fastest V1 instance and it over K1, and V2 against K1 + permutes."""
     out = []
     for r in results:
         ms = {v["variant"]: v["ms"] for v in r["variants"]}
-        v1 = min((v for v in r["variants"] if v["variant"].startswith("V1")),
-                 key=lambda v: v["ms"])
+        v1s = [v for v in r["variants"] if v["variant"].startswith("V1")]
+        v1 = min(v1s, key=lambda v: v["ms"])
+        plan = next(v for v in v1s if v["k1_plan"])
         out.append(dict(case=r["case"], streams=r["streams"],
                         reverse=r["reverse"], dtype=r["dtype"], k1_ms=ms["K1"],
-                        first_k1_ms=ms["V1 rows=8 chunk=8"],
-                        k1_over_first_k1=ms["K1"] / ms["V1 rows=8 chunk=8"],
+                        k1_plan=[plan["rows"], plan["chunk"]],
+                        k1_plan_ms=plan["ms"],
                         best_v1=[v1["rows"], v1["chunk"]], best_v1_ms=v1["ms"],
+                        best_v1_over_k1=v1["ms"] / ms["K1"],
                         v2_ms=ms.get("V2"),
                         k1_permutes_ms=ms.get("K1 + permutes"),
                         bound_ms=r["bound_ms"]))
