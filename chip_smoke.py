@@ -406,11 +406,14 @@ def phase_device():
         torch.cuda.get_device_name(0), torch.cuda.device_count()),
         flush=True)
     t0 = time.perf_counter()
-    path = _build.build()
-    _build.lib()
-    print("[device] kernels {} in {:.1f} s ({})".format(
-        "built" if _build.build_seconds is not None else "loaded",
-        time.perf_counter() - t0, path.name), flush=True)
+    paths = _build.build(*_build.LIBRARIES)       # all sources together
+    for name in _build.LIBRARIES:
+        _build.lib(name)
+    print("[device] kernels {} in {:.1f} s ({}; {})".format(
+        "built" if _build.build_seconds else "loaded",
+        time.perf_counter() - t0, ", ".join(p.name for p in paths.values()),
+        ", ".join("{} {:.1f} s".format(name, s)
+                  for name, s in _build.build_seconds.items())), flush=True)
     return card
 
 
@@ -902,7 +905,9 @@ def phase_variants(rows):
     K1's plan also equal to K1 bit for bit, forward and reverse), timed
     beside
     K1 or K8, the plain version and SDPA. Adds rows 10-13 to the JSON
-    rows and returns the run's launches (the path ``sweep``)."""
+    rows (row 12 also with G's time at every bf16 sweep shape and F's at
+    the hd = 16 bands, under ``timed``) and returns the run's launches
+    (the path ``sweep``)."""
     import torch
 
     from vit_cnn_tpu_torch.ops import _build
@@ -960,6 +965,19 @@ def phase_variants(rows):
         record(key, 0.0, "bfloat16", best["ms"], best["plain_ms"],
                (res["bound_ms"], res["bound_by"]), share=best["share"],
                best=best["variant"], library_ms=best.get("library_ms"))
+    # V3's own entries: G (masked) at every bf16 sweep shape, F at the
+    # hd = 16 bands (its wgmma form), each with its bound, share and SDPA
+    shapes = {shape[0] for shape in heads_attn_variants.SHAPES}
+    for r in heads:
+        if r["dtype"] != "bfloat16" or r["shape"] not in shapes:
+            continue
+        for v in r["variants"]:
+            if v["variant"] == "V3 masked" or (
+                    v["variant"] == "V3 per-head" and r["hd"] == 16):
+                _timed(rows, VARIANTS[2], "{}, {}".format(
+                    r["shape"], v["variant"]), "bfloat16", ms=v["ms"],
+                    bound_ms=v["bound_ms"], share=v["share"],
+                    plain_ms=v["plain_ms"], library_ms=v["library_ms"])
     # V3 has no float32 path: its error is its bf16 one
     rows[VARIANTS[2]]["max_abs_err"] = rows[VARIANTS[2]]["max_abs_err_bf16"]
     return counts

@@ -23,11 +23,15 @@ every path kind and the batch-major MambaMixer against the CPU with their
 launch counts. The tuning
 sweep's variants: every instance of the grid of K1's kernel template
 (V1) against the plain scan, and its instance at K1's plan equal to K1
-bit for bit, the batch-major scan (V2) at
-ragged batches, and the tensor-core (V3, bf16) and outer-product (V4)
-head-last attention at one token, 65 and 146 tokens, head widths 4 and 16
-and ragged batches; V4 also at head widths 1 / 3 / 4 / 5 / 16 / 17 / 32
-up to the largest n its shared memory takes, and on misaligned inputs.
+bit for bit, the batch-major scan (V2) at ragged batches and at the
+edges of its design (d 1 / 9 / 1,024, n below 16, L below and past its
+staging chunk, offset views), and the tensor-core (V3, bf16) and
+outer-product (V4) head-last attention at one token, 65 and 146 tokens,
+head widths 4 and 16 and ragged batches; V3 also at head widths 2 / 4 /
+6 / 16, C = 256, 17, 160 and 161 tokens (either side of its wgmma form's
+limit) and the largest n its shared memory takes, and on misaligned
+inputs; V4 also at head widths 1 / 3 / 4 / 5 / 16 / 17 / 32 up to the
+largest n its shared memory takes, and on misaligned inputs.
 chip_smoke.py covers the serving and training shapes.
 
 These tests need a CUDA card and skip without one. On the GPU host:
@@ -68,7 +72,7 @@ from vit_cnn_tpu_torch.ops.attention import SMEM_LIMIT
 from vit_cnn_tpu_torch.ops.heads_variants import (MAX_N,
                                                   heads_attention_mma,
                                                   heads_attention_outer,
-                                                  outer_smem)
+                                                  mma_smem, outer_smem)
 from vit_cnn_tpu_torch.ops.scan_variants import (
     TILE_CHUNKS, TILE_ROWS, k1_instance, selective_scan_batch_major,
     selective_scan_batch_major_reference, selective_scan_tiled)
@@ -831,6 +835,106 @@ def test_heads_attention_variants(gen, B, n, h, hd):
             _close(heads_attention_mma(q, k, v, hd ** -0.5, masked), want,
                    dtype)
             assert _build.launches["heads_attention_mma"] == before + 1
+
+
+def _offset(x):
+    """x's values in a contiguous view one value past an aligned
+    address."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,L,d,n,offset", [
+    (8, 81, 72, 16, False),       # 7 sequences a block: a ragged last block
+    (33, 13, 9, 16, False),       # odd d, L past one 8-step chunk
+    (6, 3, 1, 5, False),          # d = 1, L shorter than one chunk
+    (3, 20, 1024, 16, False),     # d = 1024: one sequence a block
+    (17, 40, 128, 7, False),      # n < 16: value-by-value staging
+    (9, 81, 72, 16, True),        # offset views: no pairs, no cp.async
+    (9, 49, 128, 1, True)])
+def test_batch_major_scan_edges(gen, dtype, b, L, d, n, offset):
+    """V2 at the edges of its design: the batch edge inside a block, d odd,
+    1 and 1,024, n below 16, L below and past the staging chunk, and
+    u, dt, B, C one value past an aligned address."""
+    u, dt, A, B, C, D = _scan_args(gen, (), L, d, n, b, dtype)
+    u, dt, B, C = [x.permute(2, 0, 1).contiguous() for x in (u, dt, B, C)]
+    if offset:
+        u, dt, B, C = map(_offset, (u, dt, B, C))
+    before = _build.launches["selective_scan_batch_major"]
+    got = selective_scan_batch_major(u, dt, A, B, C, D)
+    assert _build.launches["selective_scan_batch_major"] == before + 1
+    _close(got, selective_scan_batch_major_reference(u, dt, A, B, C, D),
+           dtype)
+
+
+def _mma_max_n(c):
+    """The largest n whose batch row V3 stages in one block."""
+    return max(n for n in range(1, MAX_N + 1)
+               if mma_smem(n, c) <= SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("h,hd", [(16, 2), (16, 4), (8, 6), (4, 16),
+                                  (16, 16)])
+@pytest.mark.parametrize("n", [1, 17, 65, 146, 160, 161, "max"])
+def test_heads_attention_mma_edges(gen, h, hd, n):
+    """V3 per head and, where h * hd is a multiple of 16 up to 128, head-
+    masked, at one token, a last key tile of one real key (17), the zoo's
+    65 and 146, the wgmma form's last n (160) and the first past it
+    (161), and the largest n the shared memory takes; head widths 2, 4
+    (mma_k8), 6 (windows that straddle 8 channels) and 16 (wgmma at 4
+    heads up to 160 tokens); C = 256 per head. Batches past the resident
+    blocks run the two-stage ring."""
+    c = h * hd
+    tokens = _mma_max_n(c) if n == "max" else min(n, _mma_max_n(c))
+    B = 1001 if tokens <= 65 else 33 if tokens <= 161 else 3
+    q, k, v = (_randn(gen, B, tokens, h, hd).bfloat16() for _ in range(3))
+    want = attention_reference_heads(q, k, v, hd ** -0.5)
+    masks = (False, True) if c % 16 == 0 and c <= 128 else (False,)
+    for masked in masks:
+        before = _build.launches["heads_attention_mma"]
+        _close(heads_attention_mma(q, k, v, hd ** -0.5, masked), want,
+               torch.bfloat16)
+        assert _build.launches["heads_attention_mma"] == before + 1
+
+
+@pytest.mark.parametrize("B,n,h,hd", [(7, 65, 16, 4), (7, 146, 4, 16),
+                                      (5, 17, 3, 6)])
+def test_heads_attention_mma_offset_views(gen, B, n, h, hd):
+    """q, k, v one value past an aligned address: the value-by-value
+    staging (no TMA row copies, no cp.async, no wgmma), per head and
+    masked."""
+    q, k, v = (_offset(_randn(gen, B, n, h, hd).bfloat16())
+               for _ in range(3))
+    want = attention_reference_heads(q, k, v, 0.5)
+    masks = (False, True) if (h * hd) % 16 == 0 else (False,)
+    for masked in masks:
+        _close(heads_attention_mma(q, k, v, 0.5, masked), want,
+               torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,n,h,hd", [
+    (7, 65, 16, 4), (5, 146, 16, 4), (7, 65, 8, 2), (5, 17, 3, 6),
+    (33, 65, 4, 16), (3, 146, 4, 16)])
+def test_heads_attention_mma_keeps_each_head_apart(gen, B, n, h, hd):
+    """An inf in head 1's K and V and a NaN in its q reach no other head,
+    as the per-head plain version never reads them: the heads that share
+    head 1's 8-channel windows (hd 2, 4, 6), the online softmax (n = 146),
+    the wgmma form (hd = 16) and the masked form, whose one accumulator
+    holds every head's columns."""
+    q, k, v = (_randn(gen, B, n, h, hd).bfloat16() for _ in range(3))
+    k[:, 3, 1, 0] = float("inf")
+    v[:, 4, 1, hd - 1] = float("inf")
+    q[:, 5, 1, hd - 1] = float("nan")
+    want = attention_reference_heads(q, k, v, hd ** -0.5)
+    others = [i for i in range(h) if i != 1]
+    masks = (False, True) if (h * hd) % 16 == 0 else (False,)
+    for masked in masks:
+        got = heads_attention_mma(q, k, v, hd ** -0.5, masked)
+        assert torch.isfinite(got[:, :, others]).all()
+        _close(got[:, :, others], want[:, :, others], torch.bfloat16)
 
 
 def _outer_max_n(c):

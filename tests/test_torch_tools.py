@@ -111,7 +111,11 @@ def test_kernel_ablation_reads_ptxas_usage():
                                   ["attn", "attention.cu"],
                                   ["conv_bwd", "old/dirstream_bwd.cu",
                                    "dirstream_bwd.cu"],
-                                  ["sum_bwd", "dirstream_bwd.cu"]])
+                                  ["sum_bwd", "dirstream_bwd.cu"],
+                                  ["scan_bm", "old/scan_variants.cu",
+                                   "scan_variants.cu"],
+                                  ["mma", "old/heads_variants.cu",
+                                   "heads_variants.cu"]])
 def test_kernel_ablation_parses_kind_and_sources(argv):
     kind, srcs = kernel_ablation.parse_args(argv)
     assert kind == argv[0]
@@ -121,11 +125,38 @@ def test_kernel_ablation_parses_kind_and_sources(argv):
 
 @pytest.mark.parametrize("argv", [[], ["scan_bwd"], ["bwd", "a.cu"],
                                   ["attn"], ["inv_sum", "a.cu"],
-                                  ["conv_bwd"], ["sum_bwd"]])
+                                  ["conv_bwd"], ["sum_bwd"], ["scan_bm"],
+                                  ["mma"], ["wgmma", "a.cu"]])
 def test_kernel_ablation_refuses_other_arguments(argv):
     with pytest.raises(SystemExit, match=(
             r"scan\|conv\|sum\|attn\|scan_bwd\|conv_bwd\|sum_bwd A.cu")):
         kernel_ablation.parse_args(argv)
+
+
+@pytest.mark.parametrize("kind,entry,kernels", [
+    ("scan_bm", "vct_selective_scan_batch_major",
+     ["scan_batch_major_kernel"]),
+    ("mma", "vct_heads_attention_mma",
+     ["heads_mma_kernel", "heads_wgmma_kernel"])])
+def test_kernel_ablation_variant_cases_are_the_sweeps(kind, entry, kernels):
+    """V2's cases are tools/scan_sweep.py's forward cases (the batch-major
+    layout has no reverse), V3's the attention sweep's four shapes in bf16
+    only; each names its C entry point, and the ptxas filter takes every
+    kernel of its source (V3: the mma.sync and the wgmma forms)."""
+    from vit_cnn_tpu_torch.ops import _build
+    from vit_cnn_tpu_torch.tools import heads_attn_variants, scan_sweep
+
+    cases, run_case = kernel_ablation.CASES[kind]
+    if kind == "scan_bm":
+        assert cases == tuple(c[:5] for c in scan_sweep.CASES if not c[5])
+        assert len(cases) == 4 and kind not in kernel_ablation.BF16_ONLY
+    else:
+        assert cases == heads_attn_variants.SHAPES
+        assert kind in kernel_ablation.BF16_ONLY
+    assert run_case is getattr(kernel_ablation, kind + "_case")
+    got_entry, kernel = kernel_ablation.KINDS[kind]
+    assert got_entry == entry and entry in _build._SIGNATURES
+    assert all(kernel in name for name in kernels)
 
 
 def test_kernel_ablation_scan_bwd_cases_are_the_train_launches():

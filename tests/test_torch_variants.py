@@ -14,10 +14,11 @@ the JAX package's probes and kernels, on the same numpy inputs:
   benchmark when imported, so they are not loaded.
 
 And the wrappers' dispatch: CPU tensors take the plain version and launch
-nothing; inputs that require a gradient, V3 in float32 and shapes outside
+nothing (V2 at the edges of its design, V3 at each form the card would
+launch); inputs that require a gradient, V3 in float32 and shapes outside
 a kernel's limits raise on any device. K1's launch plan is an instance of
-V1's grid at the flagship's shapes, and V4's limits take every shape its
-first design took.
+V1's grid at the flagship's shapes, and V3's and V4's limits take every
+shape their first designs took.
 
 Tolerances: the scans rtol 1e-5 (atol 1e-6 for entries near zero; the
 same float32 recurrence, another summation order); V4 in float32 the JAX
@@ -40,7 +41,7 @@ from vit_cnn_tpu_torch.ops.attention import SMEM_LIMIT
 from vit_cnn_tpu_torch.ops.heads_variants import (MAX_C, MAX_N,
                                                   heads_attention_mma,
                                                   heads_attention_outer,
-                                                  outer_smem)
+                                                  mma_smem, outer_smem)
 from vit_cnn_tpu_torch.ops.scan_variants import (
     TILE_CHUNKS, TILE_ROWS, k1_instance, selective_scan_batch_major,
     selective_scan_batch_major_reference, selective_scan_tiled)
@@ -268,6 +269,77 @@ def test_k1_plan_is_an_instance_of_v1_grid(dtype, ns, L, d, b):
     torch.testing.assert_close(
         selective_scan_tiled(*lane, rows=rows, chunk=chunk),
         selective_scan_tiled(*lane), rtol=0, atol=0)
+
+
+def _first_mma_smem(n, c):
+    """The first V3's block: q and k as bf16 rows of c + 8, v transposed
+    as rows of n + 8, n padded to a multiple of 16."""
+    np_ = -(-n // 16) * 16
+    return 2 * (2 * np_ * (c + 8) + c * (np_ + 8))
+
+
+def test_v3_limits_take_every_shape_the_first_design_took():
+    """The redesign stages q, k and v as token rows (an odd number of
+    16-byte units where that fits, else rows of c rounded up to 8) and
+    takes every (n, h * hd) the first design took."""
+    for n in range(1, MAX_N + 1):
+        for c in range(2, MAX_C + 1, 2):
+            if _first_mma_smem(n, c) <= SMEM_LIMIT:
+                assert mma_smem(n, c) <= SMEM_LIMIT, (n, c)
+    assert mma_smem(MAX_N, MAX_C) > SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n,h,hd,fits", [
+    (144, 16, 16, True), (145, 16, 16, False), (512, 4, 16, True),
+    (512, 16, 16, False)])
+def test_v3_limits_at_the_shared_memory_edge(n, h, hd, fits):
+    """At C = 256 the last n whose staged row fits (144) is taken, 145
+    refused; 4 heads of 16 take every n up to 512."""
+    q = torch.zeros((1, n, h, hd), dtype=torch.bfloat16)
+    if fits:
+        assert heads_attention_mma(q, q, q, 0.5).shape == q.shape
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            heads_attention_mma(q, q, q, 0.5)
+
+
+@pytest.mark.parametrize("B,n,h,hd,masked", [
+    (3, 65, 4, 16, False),     # the card's wgmma form
+    (2, 161, 4, 16, False),    # past it: the online mma.sync form
+    (3, 17, 16, 4, False),     # the exact-max mma.sync form, mma_k8
+    (3, 17, 16, 4, True),      # G
+    (2, 9, 8, 6, True)])       # G, head windows across 8 channels
+def test_v3_cpu_takes_the_plain_version_at_every_route(B, n, h, hd, masked):
+    """Whatever form the card would launch, CPU tensors take the plain
+    version and count no launch."""
+    from vit_cnn_tpu_torch.ops.attention import attention_reference_heads
+
+    rng = np.random.RandomState(n)
+    q, k, v = (torch.from_numpy(rng.randn(B, n, h, hd).astype(np.float32))
+               .bfloat16() for _ in range(3))
+    before = dict(_build.launches)
+    torch.testing.assert_close(
+        heads_attention_mma(q, k, v, hd ** -0.5, masked),
+        attention_reference_heads(q, k, v, hd ** -0.5), rtol=0, atol=0)
+    assert dict(_build.launches) == before
+
+
+@pytest.mark.parametrize("b,L,d,n", [(8, 17, 72, 16), (5, 3, 9, 5),
+                                     (3, 9, 1, 16)])
+def test_v2_cpu_takes_the_plain_version_at_its_edges(b, L, d, n):
+    """V2's new edges (a ragged block of 7 sequences at d 72, odd d and
+    n < 16, d = 1, L within one chunk) take the plain version on the CPU
+    and count no launch."""
+    rng = np.random.RandomState(d)
+    f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+    u, B, C = f(b, L, d), f(b, L, n), f(b, L, n)
+    dt, A, D = 0.1 * f(b, L, d).abs(), -f(d, n).exp(), f(d)
+    before = dict(_build.launches)
+    torch.testing.assert_close(
+        selective_scan_batch_major(u, dt, A, B, C, D),
+        selective_scan_batch_major_reference(u, dt, A, B, C, D), rtol=0,
+        atol=0)
+    assert dict(_build.launches) == before
 
 
 def test_v4_limits_take_every_shape_the_first_design_took():

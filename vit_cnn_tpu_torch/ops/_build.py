@@ -1,14 +1,19 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-All kernels link into ONE shared library with a plain C interface,
-loaded with :mod:`ctypes`: ``nvcc`` builds it in seconds, where a source
-that includes PyTorch's headers takes minutes. Every ``csrc/*.cu`` is
-compiled by its own ``nvcc`` process, all started together, then linked.
-The library is keyed by a hash of the sources and the flags, so an edit
-rebuilds; it lands in ``build/vit_cnn_tpu_torch/`` at the root of the
-checkout, which the ``build/`` line of ``.gitignore`` already covers.
-Nothing is downloaded or prebuilt: the first kernel launch in a process
-builds it.
+The kernels link into two shared libraries with a plain C interface,
+loaded with :mod:`ctypes`: ``nvcc`` builds them in seconds, where a
+source that includes PyTorch's headers takes minutes. ``kernels`` holds
+every kernel that the serving and training paths launch; ``probes``
+holds :data:`PROBE_SOURCES`, the variants that only the tuning sweeps
+launch, whose many instances take longer to compile than the rest, so
+that a serving or training process's first build does not wait on
+them. Every ``.cu`` is compiled by its own ``nvcc`` process, those of
+all the libraries being built started together, then each library is
+linked. A library is keyed by a hash of its sources, the headers and the
+flags, so an edit rebuilds; it lands in ``build/vit_cnn_tpu_torch/`` at
+the root of the checkout, which the ``build/`` line of ``.gitignore``
+already covers. Nothing is downloaded or prebuilt: a library's first
+kernel launch in a process builds it.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches
 (:func:`check` raises on a non-zero code), and takes pointers and the
@@ -35,6 +40,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vit_cnn_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
+
+#: the sources of the ``probes`` library (the tuning sweeps' V2, V3, V4)
+PROBE_SOURCES = ("heads_variants.cu", "scan_variants.cu")
+LIBRARIES = ("kernels", "probes")
+#: the entry points of the ``probes`` library
+_PROBE_ENTRIES = ("vct_selective_scan_batch_major", "vct_heads_attention_mma",
+                  "vct_heads_attention_outer")
 
 #: dtype codes of csrc/common.cuh ``vct::DType``
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -77,8 +89,9 @@ _WORKSPACE_SIGNATURES = {
 }
 
 _lock = threading.Lock()
-_lib = None
-build_seconds = None    # wall time of this process's build (None: loaded)
+_libs: dict = {}
+#: wall seconds of this process's build, by library (absent: loaded)
+build_seconds: dict = {}
 
 
 def _nvcc() -> str:
@@ -93,71 +106,94 @@ def _nvcc() -> str:
                        "CUDA kernels are built from csrc/ at first use")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def sources(library: str = "kernels", csrc: Path = CSRC) -> list:
+    """The ``.cu`` files of one library in a ``csrc`` directory."""
+    if library not in LIBRARIES:
+        raise ValueError("no kernel library {!r}".format(library))
+    return [src for src in sorted(Path(csrc).glob("*.cu"))
+            if (src.name in PROBE_SOURCES) == (library == "probes")]
 
 
-def library_path() -> Path:
+def library_path(library: str = "kernels") -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sources(library) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / "libvct_kernels_{}.so".format(h.hexdigest()[:16])
+    return BUILD_DIR / "libvct_{}_{}.so".format(library, h.hexdigest()[:16])
 
 
-def build() -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists."""
-    global build_seconds
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = "{}.{}".format(out.stem, os.getpid())
+def compile_and_link(groups: dict, work_dir: Path) -> dict:
+    """Build the shared library ``out`` of each ``{out: [sources]}`` entry:
+    one ``nvcc`` per source, all started together, then one link per
+    library. Returns each library's wall seconds from the common start
+    to the end of its link; raises with nvcc's errors."""
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    objs, procs = [], []
-    for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / "{}.{}.o".format(src.stem, tag)
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.PIPE,
-                                            text=True)))
-        objs.append(obj)
-    failed = []
-    for cmd, proc in procs:
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append("{}\n{}".format(" ".join(cmd), err[-4000:]))
-    tmp = out.with_suffix(".{}.tmp".format(os.getpid()))
-    if not failed:
-        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-               *(str(o) for o in objs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            failed.append("{}\n{}".format(" ".join(cmd), proc.stderr[-4000:]))
-    for obj in objs:
-        obj.unlink(missing_ok=True)
+    jobs = []
+    for out, srcs in groups.items():
+        for src in srcs:
+            obj = Path(work_dir) / "{}.{}.{}.o".format(src.stem, out.stem,
+                                                       os.getpid())
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((out, obj, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+    failed, seconds = [], {}
+    try:
+        for _, _, cmd, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append("{}\n{}".format(" ".join(cmd), err[-4000:]))
+        for out in groups:
+            if failed:
+                break
+            tmp = out.with_suffix(".{}.tmp".format(os.getpid()))
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *(str(obj) for lib_, obj, _, _ in jobs if lib_ == out)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                failed.append("{}\n{}".format(" ".join(cmd),
+                                              proc.stderr[-4000:]))
+                break
+            os.replace(tmp, out)       # atomic: concurrent builds agree
+            seconds[out] = time.perf_counter() - t0
+    finally:
+        for _, obj, _, _ in jobs:
+            obj.unlink(missing_ok=True)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    os.replace(tmp, out)           # atomic: concurrent builds agree
-    build_seconds = time.perf_counter() - t0
-    return out
+    return seconds
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib
+def build(*libraries: str) -> dict:
+    """Compile the named libraries (by default ``kernels``) unless they
+    exist, the sources of all of them together; their paths by name."""
+    paths = {name: library_path(name) for name in libraries or ("kernels",)}
+    todo = {name: path for name, path in paths.items() if not path.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        seconds = compile_and_link(
+            {path: sources(name) for name, path in todo.items()}, BUILD_DIR)
+        for name, path in todo.items():
+            build_seconds[name] = seconds[path]
+    return paths
+
+
+def lib(library: str = "kernels") -> ctypes.CDLL:
+    """A loaded kernel library, built on first use."""
     with _lock:
-        if _lib is None:
-            handle = ctypes.CDLL(str(build()))
+        if library not in _libs:
+            handle = ctypes.CDLL(str(build(library)[library]))
             for table, restype in ((_SIGNATURES, ctypes.c_int),
                                    (_WORKSPACE_SIGNATURES, ctypes.c_longlong)):
                 for name, args in table.items():
+                    if (name in _PROBE_ENTRIES) != (library == "probes"):
+                        continue
                     fn = getattr(handle, name)
                     fn.argtypes = args
                     fn.restype = restype
-            _lib = handle
-    return _lib
+            _libs[library] = handle
+    return _libs[library]
 
 
 def check(name: str, code: int) -> None:

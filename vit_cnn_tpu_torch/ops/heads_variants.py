@@ -6,11 +6,18 @@ Ports of the JAX package's attention probes (``perf/mhst_attn_variants.py``
 only as they are, both in ``csrc/heads_variants.cu``:
 
 * :func:`heads_attention_mma` — V3, the matrix-unit formulations on the
-  tensor cores (``mma.sync`` m16n8k16, bf16 operands, float32 sums):
-  per-head dots (F) or, with ``masked=True``, full-width dots against
-  head-masked K and V summed over the heads (G, the shipped TPU kernel). P
-  is rounded to bf16 before P.V, as F and G round it. bf16 only: the
-  tensor cores would take float32 only as TF32, which changes the numbers.
+  tensor cores (bf16 operands, float32 sums): per-head dots (F) or, with
+  ``masked=True``, full-width dots against head-masked K and V summed over
+  the heads (G, the shipped TPU kernel). P is rounded to bf16 before P.V,
+  as F and G round it. bf16 only: the tensor cores would take float32
+  only as TF32, which changes the numbers. A block stages a batch row's
+  q, k, v token rows (TMA bulk copies where each row is 16 bytes wide and
+  aligned; :func:`mma_smem`), in a persistent two-stage ring where two
+  such blocks fit an SM, takes fragments by ``ldmatrix`` and
+  ``mma.sync`` (m16n8k8 where a head's window is 8 channels), and for F
+  over at most 80 tokens keeps every score in registers for an exact
+  maximum; F at 4 heads of 16 over at most 160 tokens takes Q.K^T as one
+  ``wgmma`` product per head and 64-query tile.
 * :func:`heads_attention_outer` — V4, the vector-unit formulations (H's
   rank-1 score updates; C's and E's per-channel products summed per
   head) on the CUDA cores, float32 or bf16, several query rows per thread.
@@ -44,10 +51,15 @@ OUTER_MAX_HD = 32    # V4: a head's q and sums in registers
 
 
 def mma_smem(n: int, c: int) -> int:
-    """Bytes of one V3 block: q and k as bf16 rows of c + 8, v transposed
-    as rows of n + 8, n padded to a multiple of 16."""
+    """Bytes of one V3 block: q, k and v as bf16 token rows of c rounded
+    up to an odd number of 8-value units (or to 8 values, where the odd
+    row would not fit), n padded to a multiple of 16, 16 values of slack
+    and the staging mbarrier."""
     np_ = -(-n // 16) * 16
-    return 2 * (2 * np_ * (c + 8) + c * (np_ + 8))
+    w = -(-c // 8) * 8
+    rows = lambda cs: 2 * (3 * np_ * cs + 16) + 8
+    odd = w if (w // 8) % 2 else w + 8
+    return rows(odd) if rows(odd) <= SMEM_LIMIT else rows(w)
 
 
 def outer_smem(n: int, c: int) -> int:
@@ -105,7 +117,8 @@ def heads_attention_mma(q, k, v, scale: float, masked: bool = False):
             mma_smem(n, c))
     if _build.use_plain(q):
         return attention_reference_heads(q, k, v, scale)
-    return _launch("heads_attention_mma", _build.lib().vct_heads_attention_mma,
+    return _launch("heads_attention_mma",
+                   _build.lib("probes").vct_heads_attention_mma,
                    q, k, v, float(scale), int(masked))
 
 
@@ -119,7 +132,7 @@ def heads_attention_outer(q, k, v, scale: float):
             outer_smem(n, h * hd))
     if _build.use_plain(q):
         return attention_reference_heads(q, k, v, scale)
-    lib = _build.lib()
+    lib = _build.lib("probes")
     code = _build.dtype_code(q)
     return _launch("heads_attention_outer",
                    lambda *a: lib.vct_heads_attention_outer(code, *a),

@@ -13,7 +13,9 @@ Ports of the JAX package's tuning probes, forward only as they are:
 * :func:`selective_scan_batch_major` — V2 (``csrc/scan_variants.cu``, the
   counterpart of ``perf/scan_bm_sweep.py`` ``_scan_kernel_bm``): the scan
   read and written in the mixer's batch-major layout, u, dt (b, L, d) and
-  B, C (b, L, n). Its plain version,
+  B, C (b, L, n); threads run along d of one sequence (2 channels a
+  thread in bf16, 1 in float32), so each step's B and C, staged a chunk
+  ahead by ``cp.async``, are read as broadcasts. Its plain version,
   :func:`selective_scan_batch_major_reference`, permutes to lane-major,
   runs the plain scan and permutes back.
 
@@ -105,7 +107,7 @@ def selective_scan_batch_major(u, dt, A, B, C, D):
     _build.check_inputs(u, dt, A32, B, C, D32)
     y = torch.empty_like(u)
     with torch.cuda.device(u.device):
-        code = _build.lib().vct_selective_scan_batch_major(
+        code = _build.lib("probes").vct_selective_scan_batch_major(
             _build.dtype_code(u), u.data_ptr(), dt.data_ptr(), A32.data_ptr(),
             B.data_ptr(), C.data_ptr(), D32.data_ptr(), y.data_ptr(),
             L, d, n, b, _build.stream_of(u))

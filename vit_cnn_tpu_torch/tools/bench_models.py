@@ -42,7 +42,7 @@ and flax's initializers, so the two tables do not share inputs.
   the unprofiled host ms; peak memory.
 
 Output: the card's name and power limit (:func:`..tools.card_line`) and
-the code's stamp (:func:`..tools.stamp`); the kernel library's build (or
+the code's stamp (:func:`..tools.stamp`); the main kernel library's build (or
 load) seconds, apart from any model; per model a line on stderr as each
 phase ends, one JSON line with every figure and its markdown row; at
 the end the whole markdown table.
@@ -324,7 +324,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         _build.lib()
         print("kernel library {} in {:.1f} s".format(
-            "built" if _build.build_seconds is not None else "loaded",
+            "built" if "kernels" in _build.build_seconds else "loaded",
             time.perf_counter() - t0), flush=True)
     scene = load_scene()
     reports = []

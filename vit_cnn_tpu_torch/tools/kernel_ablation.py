@@ -1,18 +1,20 @@
-"""Sources of K1-K7 and V4 built side by side and timed on the card.
+"""Sources of K1-K7 and V2-V4 built side by side and timed on the card.
 
-  python -m vit_cnn_tpu_torch.tools.kernel_ablation outer|scan|conv|sum|attn|scan_bwd|conv_bwd|sum_bwd A.cu [B.cu ...]
+  python -m vit_cnn_tpu_torch.tools.kernel_ablation mma|scan_bm|outer|scan|conv|sum|attn|scan_bwd|conv_bwd|sum_bwd A.cu [B.cu ...]
 
 Each source is a copy of ``csrc/selective_scan_fwd.cu`` (``scan``, K1),
 ``csrc/dirstream.cu`` (``conv``, K2; ``sum``, K3),
 ``csrc/attention.cu`` (``attn``, K4), ``csrc/selective_scan_bwd.cu``
 (``scan_bwd``, K5), ``csrc/dirstream_bwd.cu`` (``conv_bwd``, K6;
-``sum_bwd``, K7) or ``csrc/heads_variants.cu`` (``outer``, V4) with
-``common.cuh`` (and ``mma.cuh``) beside it: a variant under study,
-or another commit's file unpacked with ``git archive``. Each is built
-alone with the port's nvcc flags and ``-Xptxas -v``, and the registers,
-spill bytes and shared memory of its kernels are printed as one JSON
-line. Then each source's entry point (``vct_selective_scan``,
+``sum_bwd``, K7), ``csrc/scan_variants.cu`` (``scan_bm``, V2) or
+``csrc/heads_variants.cu`` (``mma``, V3; ``outer``, V4) with
+``common.cuh`` (and ``mma.cuh``, ``hopper.cuh``) beside it: a variant
+under study, or another commit's file unpacked with ``git archive``.
+Each is built alone with the port's nvcc flags and ``-Xptxas -v``, and
+the registers, spill bytes and shared memory of its kernels are printed
+as one JSON line. Then each source's entry point (``vct_selective_scan``,
 ``vct_dir_conv_silu``, ``vct_inv_perm_weighted_sum``, ``vct_attention``,
+``vct_selective_scan_batch_major``, ``vct_heads_attention_mma``,
 ``vct_heads_attention_outer``, or a backward entry point with its
 workspace: ``vct_selective_scan_bwd``, ``vct_dir_conv_silu_bwd``,
 ``vct_inv_perm_weighted_sum_bwd``; the port's C signatures) runs on the
@@ -20,17 +22,19 @@ same inputs at the flagship's shapes (:data:`SCAN_CASES`,
 :data:`CONV_CASES`, :data:`SUM_CASES`, :data:`ATTN_CASES`,
 :data:`SCAN_BWD_CASES`, :data:`CONV_BWD_CASES`, :data:`SUM_BWD_CASES`:
 each kernel's launches on the main path, the adjoints' those of a train
-step; V4 at the attention sweep's shapes, :data:`OUTER_CASES`) in bf16
-and float32: per shape and
+step; V2 at the scan sweep's forward cases, :data:`SCAN_BM_CASES`; V3
+and V4 at the attention sweep's shapes, :data:`OUTER_CASES`) in bf16
+and float32 (V3: bf16, per head and head-masked): per shape and
 dtype one JSON line with each source's max|diff| against the plain
 version, whether it is within ``tools.TOL`` (K5's outputs, and the
 summed gradients of K6 and K7, sums whose terms cancel, against ``atol +
 rtol * max|want|``), the median of :data:`ROUNDS` CUDA-event medians
 taken in rotating order (the sources in order, then reversed), and for
-K3-K7 and V4 the launch's bound (``tools.bound``: bytes, FLOPs, K4's,
-K5's, K6's and V4's exps) and for K4 and V4 the time of
-``scaled_dot_product_attention`` on the same inputs. Exit code 1 when a
-source disagrees with the plain version.
+K3-K7 and V2-V4 the launch's bound (``tools.bound``: bytes, FLOPs, K4's,
+K5's, K6's, V2's, V3's and V4's exps), for V2 the time of K1 on the
+same sequences in its lane-major layout, and for K4, V3 and V4 the time
+of ``scaled_dot_product_attention`` on the same inputs. Exit code 1 when
+a source disagrees with the plain version.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from pathlib import Path
 import torch
 
 from . import TOL, bound, card_line, compare, median_ms, scan_inputs
+from . import scan_sweep
 
 ROUNDS = 4
 BAND, TRAIN = 7588, 1024
@@ -80,6 +85,9 @@ OUTER_CASES = (("probe", 4096, 65, 16, 4),
                ("MHST pooled band", 7592, 65, 16, 4),
                ("ViT band n=65", 7592, 65, 4, 16),
                ("SpectralFormer band", 7620, 146, 4, 16))
+# (label, streams, L, d, b): V2 at tools/scan_sweep.py's forward cases,
+# the streams' sequences laid out (ns b, L, d)
+SCAN_BM_CASES = tuple(case[:5] for case in scan_sweep.CASES if not case[5])
 DTYPES = (torch.bfloat16, torch.float32)
 KINDS = {"scan": ("vct_selective_scan", "selective_scan_fwd_kernel"),
          "conv": ("vct_dir_conv_silu", "dir_conv_silu_kernel"),
@@ -89,7 +97,12 @@ KINDS = {"scan": ("vct_selective_scan", "selective_scan_fwd_kernel"),
          "conv_bwd": ("vct_dir_conv_silu_bwd", "dir_conv_silu_bwd_kernel"),
          "sum_bwd": ("vct_inv_perm_weighted_sum_bwd",
                      "inv_perm_weighted_sum_bwd_kernel"),
-         "outer": ("vct_heads_attention_outer", "heads_outer_kernel")}
+         "outer": ("vct_heads_attention_outer", "heads_outer_kernel"),
+         "mma": ("vct_heads_attention_mma", "mma_kernel"),
+         "scan_bm": ("vct_selective_scan_batch_major",
+                     "scan_batch_major_kernel")}
+# the kinds whose kernels take bf16 only
+BF16_ONLY = ("mma",)
 
 
 def ptxas_usage(text: str, kernel: str) -> dict:
@@ -126,33 +139,41 @@ def parse_args(argv):
     return argv[0], [Path(p).resolve() for p in argv[1:]]
 
 
-def build(src: Path, index: int, kind: str):
-    """``src`` built alone into ``build/vit_cnn_tpu_torch/ablation_<i>.so``:
-    (the entry point with its C signature, ptxas usage); a backward entry
-    point comes with its ``*_workspace`` function as a pair."""
+def build(srcs, kind: str):
+    """Each of ``srcs`` built alone into
+    ``build/vit_cnn_tpu_torch/ablation_<i>.so``, one nvcc process each, all
+    started together: per source (the entry point with its C signature,
+    ptxas usage); a backward entry point comes with its ``*_workspace``
+    function as a pair."""
     from ..ops import _build
 
     entry, kernel = KINDS[kind]
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / "ablation_{}.so".format(index)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-           "-o", str(out), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("{}\n{}".format(" ".join(cmd),
-                                           proc.stderr[-4000:]))
-    lib = ctypes.CDLL(str(out))
-    fn = getattr(lib, entry)
-    fn.argtypes = _build._SIGNATURES[entry]
-    fn.restype = ctypes.c_int
-    usage = ptxas_usage(proc.stdout + proc.stderr, kernel)
-    ws_name = entry + "_workspace"
-    if ws_name not in _build._WORKSPACE_SIGNATURES:
-        return fn, usage
-    ws = getattr(lib, ws_name)
-    ws.argtypes = _build._WORKSPACE_SIGNATURES[ws_name]
-    ws.restype = ctypes.c_longlong
-    return (fn, ws), usage
+    started = []
+    for index, src in enumerate(srcs):
+        out = _build.BUILD_DIR / "ablation_{}.so".format(index)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+               "-shared", "-o", str(out), str(src)]
+        started.append((cmd, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    built = []
+    for cmd, out, proc in started:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError("{}\n{}".format(" ".join(cmd), stderr[-4000:]))
+        lib = ctypes.CDLL(str(out))
+        fn = getattr(lib, entry)
+        fn.argtypes = _build._SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+        usage = ptxas_usage(stdout + stderr, kernel)
+        ws_name = entry + "_workspace"
+        if ws_name in _build._WORKSPACE_SIGNATURES:
+            ws = getattr(lib, ws_name)
+            ws.argtypes = _build._WORKSPACE_SIGNATURES[ws_name]
+            ws.restype = ctypes.c_longlong
+            fn = (fn, ws)
+        built.append((fn, usage))
+    return built
 
 
 def compare_summed(got, want, dtype_name: str):
@@ -487,12 +508,88 @@ def outer_case(entries, names, label, B, n, h, hd, dtype):
                 sources=rows)
 
 
+def scan_bm_case(entries, names, label, ns, L, d, b, dtype):
+    from ..ops import _build
+    from ..ops.scan_variants import selective_scan_batch_major_reference
+    from ..ops.selective_scan import selective_scan
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    u, dt, A, B, C, D = scan_inputs(g, ns, L, d, 16, b, dtype)
+    lane = (u, dt, A, B, C, D)
+    bm = lambda x: x.permute(0, 3, 1, 2).contiguous().view(ns * b, L, -1)
+    u, dt, B, C = bm(u), bm(dt), bm(B), bm(C)
+    want = selective_scan_batch_major_reference(u, dt, A, B, C, D)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def runner(entry):
+        def run():
+            y = torch.empty_like(u)
+            _build.check("vct_selective_scan_batch_major", entry(
+                _build.dtype_code(u), u.data_ptr(), dt.data_ptr(),
+                A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+                y.data_ptr(), L, d, 16, ns * b, stream))
+            return y
+        return run
+
+    dn = str(dtype).split(".")[1]
+    bound_ms, bound_by = bound([u, dt, A, B, C, D, want], dn,
+                               exps=ns * b * L * d * 16)
+    rows = _timed([runner(e) for e in entries], names, want, dn)
+    k1_ms = median_ms(lambda: selective_scan(*lane))
+    return dict(case=label, streams=ns, L=L, d=d, b=b, dtype=dn,
+                bound_ms=bound_ms, bound_by=bound_by, k1_ms=k1_ms,
+                sources=rows)
+
+
+def mma_case(entries, names, label, B, n, h, hd, dtype):
+    """V3 per head (``sources``) and head-masked (``masked``, where h * hd
+    is a multiple of 16 up to 128) at one shape."""
+    import torch.nn.functional as F
+
+    from ..ops import _build
+    from ..ops.attention import attention_reference_heads
+    from ..ops.heads_variants import MASKED_MAX_C
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((B, n, h, hd), generator=g, device="cuda")
+               .to(dtype) for _ in range(3))
+    scale = hd ** -0.5
+    want = attention_reference_heads(q, k, v, scale)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def runner(entry, masked):
+        def run():
+            o = torch.empty_like(q)
+            _build.check("vct_heads_attention_mma", entry(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
+                n, h, hd, scale, int(masked), stream))
+            return o
+        return run
+
+    dn = str(dtype).split(".")[1]
+    bound_ms, bound_by = bound([q, k, v, want], dn, exps=B * h * n * n,
+                               flops=4 * B * h * n * n * hd)
+    out = dict(case=label, B=B, n=n, h=h, hd=hd, dtype=dn,
+               bound_ms=bound_ms, bound_by=bound_by)
+    out["sources"] = _timed([runner(e, False) for e in entries], names,
+                            want, dn)
+    if (h * hd) % 16 == 0 and h * hd <= MASKED_MAX_C:
+        out["masked"] = _timed([runner(e, True) for e in entries], names,
+                               want, dn)
+    heads_first = lambda t: t.transpose(1, 2)
+    out["sdpa_ms"] = median_ms(lambda: F.scaled_dot_product_attention(
+        heads_first(q), heads_first(k), heads_first(v), scale=scale))
+    return out
+
+
 CASES = {"scan": (SCAN_CASES, scan_case), "conv": (CONV_CASES, conv_case),
          "sum": (SUM_CASES, sum_case), "attn": (ATTN_CASES, attn_case),
          "scan_bwd": (SCAN_BWD_CASES, scan_bwd_case),
          "conv_bwd": (CONV_BWD_CASES, conv_bwd_case),
          "sum_bwd": (SUM_BWD_CASES, sum_bwd_case),
-         "outer": (OUTER_CASES, outer_case)}
+         "outer": (OUTER_CASES, outer_case),
+         "mma": (OUTER_CASES, mma_case),
+         "scan_bm": (SCAN_BM_CASES, scan_bm_case)}
 
 
 def main() -> int:
@@ -501,17 +598,17 @@ def main() -> int:
         raise SystemExit("kernel_ablation: CUDA is not available")
     print(card_line(), flush=True)
     names, entries = [], []
-    for i, src in enumerate(srcs):
-        fn, usage = build(src, i, kind)
+    for src, (fn, usage) in zip(srcs, build(srcs, kind)):
         names.append(str(src))
         entries.append(fn)
         print(json.dumps({"source": str(src), "ptxas": usage}), flush=True)
     ok = True
     cases, run_case = CASES[kind]
-    for dtype in DTYPES:
+    for dtype in (torch.bfloat16,) if kind in BF16_ONLY else DTYPES:
         for case in cases:
             res = run_case(entries, names, *case, dtype)
-            ok &= all(r["ok"] for r in res["sources"].values())
+            ok &= all(r["ok"] for key in ("sources", "masked")
+                      for r in res.get(key, {}).values())
             print(json.dumps(res), flush=True)
             torch.cuda.empty_cache()
     print(json.dumps({"ok": ok}), flush=True)
