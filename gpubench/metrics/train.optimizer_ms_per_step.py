@@ -1,0 +1,10 @@
+"""Device milliseconds of the optimizer family (Adam's multi-tensor
+kernels) per train step of the traced epochs."""
+
+
+def read(ctx):
+    t, w = ctx["trace"], ctx["work"]["traced"]
+    spent = t.family_seconds().get("optimizer", 0.0)
+    if not w.get("steps") or spent <= 0:
+        return None
+    return 1e3 * spent / w["steps"]
