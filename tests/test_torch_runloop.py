@@ -345,6 +345,3 @@ def test_profiling_counts_and_traces(tmp_path):
     (trace,) = os.listdir(str(tmp_path / "tr"))
     with open(str(tmp_path / "tr" / trace)) as f:
         assert json.load(f)["traceEvents"]
-    meter = profiling.Throughput().start()
-    meter.update(100, fence_on=x)
-    assert meter.rate() > 0

@@ -27,6 +27,10 @@ taking band r of each group; at stride > 1 rank r takes every n-th
 chunk of origins. Each rank adds its windows into a zero-filled map and
 one all-reduce sums the maps: every pixel gets its windows from one rank
 only, so the sum is the world-size-1 map.
+
+While a profiler runs, the map, a scene's upload, each band or chunk and
+the map's download are named ranges (:data:`MAP_SPAN` and the others
+below, :func:`..utils.profiling.span`).
 """
 
 from __future__ import annotations
@@ -40,6 +44,16 @@ import torch
 from ..data.normalize import apply_pca
 from ..nn.precision import bf16_apply
 from ..parallel.mesh import Mesh
+from ..utils.profiling import span
+
+#: profiler ranges: one whole map, a scene's upload on a cache miss, one
+#: band of the stride-1 loop, one chunk of the per-origin path, and the
+#: map's download to the host
+MAP_SPAN = "fullscene.map"
+UPLOAD_SPAN = "fullscene.upload"
+BAND_SPAN = "fullscene.band"
+CHUNK_SPAN = "fullscene.chunk"
+DOWNLOAD_SPAN = "fullscene.download"
 
 
 class SceneCache:
@@ -69,9 +83,11 @@ class SceneCache:
             self._entries[id(base)] = entry
         key = (str(device), dtype, pca)
         if key not in entry[1]:
-            host = apply_pca(base, pca) if pca else base
-            host = torch.from_numpy(np.ascontiguousarray(host, np.float32))
-            entry[1][key] = host.to(device).to(dtype)
+            with span(UPLOAD_SPAN):
+                host = apply_pca(base, pca) if pca else base
+                host = torch.from_numpy(np.ascontiguousarray(host,
+                                                             np.float32))
+                entry[1][key] = host.to(device).to(dtype)
             self.uploads += 1
         return entry[1][key]
 
@@ -141,12 +157,13 @@ def per_origin_map(apply_fn, scene1: torch.Tensor, scene2: torch.Tensor,
     probs = torch.zeros((h * w, n_classes), dtype=torch.float32,
                         device=device)
     for i in range(rank * chunk, n + rem, chunk * world_size):
-        o = origins[i:i + chunk]
-        out = apply_fn(gather_windows(scene1, o, p),
-                       gather_windows(scene2, o, p))
-        logits = out[0] if isinstance(out, tuple) else out
-        probs.index_add_(0, centers[i:i + chunk],
-                         logits.float() * valid[i:i + chunk, None])
+        with span(CHUNK_SPAN):
+            o = origins[i:i + chunk]
+            out = apply_fn(gather_windows(scene1, o, p),
+                           gather_windows(scene2, o, p))
+            logits = out[0] if isinstance(out, tuple) else out
+            probs.index_add_(0, centers[i:i + chunk],
+                             logits.float() * valid[i:i + chunk, None])
     return probs.reshape(h, w, n_classes)
 
 
@@ -178,6 +195,17 @@ def full_scene_probabilities(model: torch.nn.Module, img1: np.ndarray,
     (default 1) above 1 takes the per-origin path. The map comes back to
     the host as a numpy array. With ``mesh`` every rank calls with the
     same arguments, maps its share and gets the whole map."""
+    with span(MAP_SPAN):
+        probs = _scene_map(model, img1, img2, hyperparams, chunk, cache,
+                           mesh)
+        with span(DOWNLOAD_SPAN):
+            return probs.cpu().numpy()
+
+
+def _scene_map(model, img1, img2, hyperparams, chunk, cache, mesh):
+    """The (H, W, n_classes) float32 map of
+    :func:`full_scene_probabilities` on the model's device, summed over
+    the mesh."""
     patch_size = int(hyperparams["patch_size"])
     n_classes = int(hyperparams["n_classes"])
     step = int(hyperparams.get("test_stride", 1))
@@ -200,7 +228,7 @@ def full_scene_probabilities(model: torch.nn.Module, img1: np.ndarray,
                                n_classes, step, chunk, rank, n_dev)
         if mesh is not None:
             mesh.sum_(probs)
-        return probs.cpu().numpy()
+        return probs
 
     h, w = scene1.shape[:2]
     p = patch_size
@@ -217,16 +245,18 @@ def full_scene_probabilities(model: torch.nn.Module, img1: np.ndarray,
                         device=device)
     row_ids = torch.arange(rows, device=device)
     for x0 in range(rank * rows, total + t_pad, rows * n_dev):
-        band1 = scene1[x0:x0 + rows + p - 1]
-        band2 = scene2[x0:x0 + rows + p - 1]
-        out = apply_fn(band_patches(band1, rows, p),
-                       band_patches(band2, rows, p))
-        logits = out[0] if isinstance(out, tuple) else out
-        block = logits.reshape(rows, wc, -1).float()
-        # padding origin rows land inside the image for P >= 3: mask them
-        valid = (x0 + row_ids < total).float()
-        probs[x0 + p // 2:x0 + p // 2 + rows, p // 2:p // 2 + wc] += \
-            block * valid[:, None, None]
+        with span(BAND_SPAN):
+            band1 = scene1[x0:x0 + rows + p - 1]
+            band2 = scene2[x0:x0 + rows + p - 1]
+            out = apply_fn(band_patches(band1, rows, p),
+                           band_patches(band2, rows, p))
+            logits = out[0] if isinstance(out, tuple) else out
+            block = logits.reshape(rows, wc, -1).float()
+            # padding origin rows land inside the image for P >= 3: mask
+            # them
+            valid = (x0 + row_ids < total).float()
+            probs[x0 + p // 2:x0 + p // 2 + rows, p // 2:p // 2 + wc] += \
+                block * valid[:, None, None]
     if mesh is not None:
         mesh.sum_(probs)
-    return probs[:h].cpu().numpy()
+    return probs[:h]

@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 
 MAX_LK = 64      # keys per group the kernel stages in shared memory
@@ -253,8 +254,7 @@ class _HeadsAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.enable_grad(), torch.profiler.record_function(
-                HEADS_BACKWARD):
+        with torch.enable_grad(), span(HEADS_BACKWARD):
             leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
             o = attention_reference_heads(*leaves, ctx.scale, ctx.residual)
             return (*torch.autograd.grad(o, leaves, g), None, None, None)
@@ -314,8 +314,7 @@ class _PooledAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.enable_grad(), torch.profiler.record_function(
-                POOLED_BACKWARD):
+        with torch.enable_grad(), span(POOLED_BACKWARD):
             leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
             q, k, v, gq, bq, gk, bk, gv, bv = leaves
             o = pooled_attention_reference(q, k, v, (gq, bq), (gk, bk),

@@ -39,6 +39,10 @@ The generator, the shuffle's RandomState and the model stay replicated
 one; validation runs whole on every rank, so every rank picks the same
 best epoch. Only rank 0 writes the best, final and resumable files and
 prints; every rank can restore a resumable file.
+
+While a profiler runs, each step and its batch assembly, forward and
+loss, backward and optimizer are named ranges (:data:`STEP_SPAN` and the
+others below).
 """
 
 from __future__ import annotations
@@ -57,9 +61,20 @@ from ..nn.precision import bf16_train_apply
 from ..parallel import mesh as mesh_lib
 from ..pipeline.patches import PatchPipeline
 from ..utils import nancheck
+from ..utils.profiling import span
 from . import checkpoint as ckpt
 from .losses import LOSSES
 from .optim import OptimizerSpec, build_lr_schedule, build_optimizer
+
+
+#: profiler ranges of one optimizer step (:meth:`Trainer._step`) and of
+#: its batch assembly, forward and loss, backward (with the mesh's
+#: gradient sum) and optimizer
+STEP_SPAN = "trainer.step"
+BATCH_SPAN = "trainer.batch"
+FORWARD_SPAN = "trainer.forward"
+BACKWARD_SPAN = "trainer.backward"
+OPTIMIZER_SPAN = "trainer.optimizer"
 
 
 @dataclasses.dataclass
@@ -171,35 +186,40 @@ class Trainer:
         """One optimizer step on the global batch ``centers`` (device int
         tensor); returns ``loss_sum`` plus this step's loss (under a mesh,
         this rank's share of it), on the device."""
-        with mesh_lib.engaged(self.mesh):
+        with span(STEP_SPAN), mesh_lib.engaged(self.mesh):
             centers = mesh_lib.shard_rows(centers)
             valid = mesh_lib.shard_rows(valid)
-            p1, p2, labels = self.pipeline.make_batch(self.generator,
-                                                      centers, train=True)
+            with span(BATCH_SPAN):
+                p1, p2, labels = self.pipeline.make_batch(
+                    self.generator, centers, train=True)
             self.model.train()
-            with noise.drawing(self.noise):
-                out = self._forward(p1, p2)
-            loss = self.loss_fn(out, labels, self.class_weights, valid)
-            self.optimizer.zero_grad(set_to_none=True)
+            with span(FORWARD_SPAN):
+                with noise.drawing(self.noise):
+                    out = self._forward(p1, p2)
+                loss = self.loss_fn(out, labels, self.class_weights, valid)
+            with span(BACKWARD_SPAN):
+                self.optimizer.zero_grad(set_to_none=True)
+                if self.debug_nans:
+                    nancheck.check(loss, "the loss")
+                    nancheck.backward(loss)
+                else:
+                    loss.backward()
+                for p in self.model.parameters():
+                    if p.grad is None:
+                        # a parameter the loss does not reach (S2EFT's
+                        # gate conv, behind its hard gate) gets a zero
+                        # gradient, as jax.grad gives it, so the optimizer
+                        # steps every parameter
+                        p.grad = torch.zeros_like(p)
+                mesh_lib.all_reduce_grads(self.model, self.mesh)
+            with span(OPTIMIZER_SPAN):
+                for group in self.optimizer.param_groups:
+                    group["lr"] = self.schedule(self.steps_done)
+                self.optimizer.step()
             if self.debug_nans:
-                nancheck.check(loss, "the loss")
-                nancheck.backward(loss)
-            else:
-                loss.backward()
-        for p in self.model.parameters():
-            if p.grad is None:
-                # a parameter the loss does not reach (S2EFT's gate conv,
-                # behind its hard gate) gets a zero gradient, as jax.grad
-                # gives it, so the optimizer steps every parameter
-                p.grad = torch.zeros_like(p)
-        mesh_lib.all_reduce_grads(self.model, self.mesh)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.steps_done)
-        self.optimizer.step()
-        if self.debug_nans:
-            nancheck.check_parameters(self.model)
-        self.steps_done += 1
-        return loss_sum + loss.detach()
+                nancheck.check_parameters(self.model)
+            self.steps_done += 1
+            return loss_sum + loss.detach()
 
     @torch.no_grad()
     def validate(self) -> float:

@@ -1,4 +1,4 @@
-"""Parameter and FLOP counts, traces and a throughput counter.
+"""Parameter and FLOP counts, traces and named spans.
 
 Counterpart of :mod:`vit_cnn_tpu.utils.profiling` in torch terms:
 
@@ -13,8 +13,8 @@ Counterpart of :mod:`vit_cnn_tpu.utils.profiling` in torch terms:
   is present) of a code region, written as a Chrome trace
   (:func:`start_trace` / :func:`stop_trace` for regions that are not one
   block);
-* :class:`Throughput` — items/s, fenced with ``torch.cuda.synchronize``
-  on a CUDA tensor.
+* :func:`span` — a named ``record_function`` range while a profiler
+  runs, and nothing otherwise.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Any, Dict, Iterator, Optional
+from typing import ContextManager, Dict, Iterator
 
 import torch
 
@@ -79,6 +79,21 @@ def stop_trace(prof: torch.profiler.profile, log_dir: str) -> str:
     return path
 
 
+#: what :func:`span` returns with no profiler running (reentrant)
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str) -> ContextManager:
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler runs (``torch.profiler``, the CLI's ``--profile_dir``,
+    ``emit_nvtx``), and a shared no-op context otherwise: a range costs
+    microseconds of host time even with no profiler running, the check a
+    small fraction of that."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     """Profiler trace around a code region, written to ``log_dir``."""
@@ -87,39 +102,3 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
         yield prof
     finally:
         stop_trace(prof, log_dir)
-
-
-class Throughput:
-    """Streaming items/s counter (patches/s, the serving and training
-    metric). Pass a tensor to :meth:`update` (or call :meth:`fence`) so the
-    time covers the work queued on the card, not its launch."""
-
-    def __init__(self, n_devices: int = 1):
-        self.n_devices = max(n_devices, 1)
-        self.items = 0
-        self.t0: Optional[float] = None
-
-    def start(self):
-        self.t0 = time.time()
-        self.items = 0
-        return self
-
-    @staticmethod
-    def fence(x: Any) -> None:
-        """Wait for everything queued before ``x`` where it is a CUDA
-        tensor."""
-        if isinstance(x, torch.Tensor) and x.is_cuda:
-            torch.cuda.synchronize(x.device)
-
-    def update(self, n_items: int, fence_on: Any = None):
-        if self.t0 is None:
-            self.start()
-        if fence_on is not None:
-            self.fence(fence_on)
-        self.items += n_items
-
-    def rate(self) -> float:
-        """items/s/device since start()."""
-        if self.t0 is None or self.items == 0:
-            return 0.0
-        return self.items / (time.time() - self.t0) / self.n_devices
