@@ -19,12 +19,18 @@ the result lines:
    K5 timed in bf16 at all four of a train step's launches, K6 and K7 at
    both train stages, each printed with its bound and share), and the
    gradients of the four autograd Functions against autograd through
-   their plain versions.
+   their plain versions. Then the eval-mode BatchNorm pass (``bn_act``)
+   at FusAtNet's largest tensor (a band of 7,580 windows, 11 x 11 x
+   1,024), with the conv bias and the ReLU, equal to its plain chain bit
+   for bit in bf16 (timed beside the chain, with its bound) and float32,
+   and at a flagship band's BatchNorms (C = 1, 25, 49, 144, 256; both of
+   its load paths), with and without the conv bias and the ReLU.
 3. slice   — the port's ``--serve`` daemon on the Synthetic scene at
    Houston2013 size (349 x 1905, 144 + 1 bands, 15 classes) under the bf16
    policy, with seeded random weights loaded through convert.py: three
    requests, seconds and windows/s each, a finite (349, 1905, 15) map,
-   and every forward kernel's launch count in that run.
+   and every forward kernel's launch count in that run (the BatchNorm
+   pass's exactly once a BatchNorm, band and request).
 4. crop    — a 12 x 64 crop of the scene served on the card (kernels,
    float32 and bf16) and on the CPU in float32 (plain versions).
 5. train   — the port's training run (the CLI without ``--serve``) on the
@@ -59,7 +65,8 @@ the result lines:
    seeded weights through convert.py: MHST for three requests, then
    SpectralFormer, S2EFT and GLT_Net for one each; seconds and windows/s,
    a finite (349, 1905, 15) map, and the head-last attention kernels (K8,
-   K9) launched exactly as often as the models' layers and bands say.
+   K9) and the BatchNorm pass launched exactly as often as the models'
+   layers and bands say.
 8. zoo-crop — each zoo model on a 12 x 64 crop on the card (float32 and
    bf16) and on the CPU in float32, held to phase 4's limits; for MHST
    the number of head selections, for S2EFT the number of its band gate's
@@ -89,8 +96,10 @@ the result lines:
    replayed), and steady bf16 train steps (ms/step, patches/s, peak
    memory); then HCTnet's ``run_train`` (PCA on the way in) and its best
    file through ``--serve --restore`` with the run's OA / AA / Kappa
-   exactly. No hand-written kernel lies on this path (the JAX CNN models
-   reach no Pallas kernel): every K1-K9 count stays 0.
+   exactly. No kernel of K1-K9 lies on this path (the JAX CNN models
+   reach no Pallas kernel): every K1-K9 count stays 0; serving launches
+   the eval-mode BatchNorm pass once a BatchNorm, band and request and
+   nothing else (``run_train``'s validation and maps launch it too).
 
 11. run_modes — run after the CNN zoo: the port's remaining run modes.
    The flagship through ``--serve`` with ``{"stride": 3}`` requests (bf16;
@@ -244,13 +253,30 @@ MHST_POOLED_BLOCKS = 8
 # the tokens of each zoo ViT in training (K8's train shapes)
 ZOO_TRAIN_TOKENS = ((65, "MHST, GLT_Net"), (145, "S2EFT"),
                     (146, "SpectralFormer"))
-# phase cnn_zoo: the CNN zoo (no hand-written kernel on its path), and the
+# phase cnn_zoo: the CNN zoo (none of K1-K9 on its path), and the
 # model whose run_train and best file it checks (PCA on the way in)
 CNN_ZOO = ("EndNet", "Early_fusion_CNN", "Middle_fusion_CNN",
            "Late_fusion_CNN", "Cross_fusion_CNN", "S2ENet", "FusAtNet",
            "MFT", "HCTnet")
 CNN_HANDOFF = "HCTnet"
 PATH_KERNELS = FORWARD + ADJOINTS + HEADS
+# the eval-mode BatchNorm pass: every model's serving with a BatchNorm
+BN_PASS = ("bn_act",)
+# its launches a forward in eval mode: one per BatchNorm the model calls
+# (FusAtNet: its 35 ConvBNReLU units; the flagship: 16 BatchNorms)
+BN_SITES = {"Multimodality_Mamba": 16, "MHST": 9, "SpectralFormer": 0,
+            "S2EFT": 0, "GLT_Net": 13, "EndNet": 10, "Early_fusion_CNN": 6,
+            "Middle_fusion_CNN": 10, "Late_fusion_CNN": 12,
+            "Cross_fusion_CNN": 16, "S2ENet": 11, "FusAtNet": 35, "MFT": 3,
+            "HCTnet": 3}
+# phase 2's shapes for it: FusAtNet's largest tensor, a band of windows at
+# its 1,024-channel 11 x 11 units (timed, with the conv bias and the ReLU);
+# then a flagship band's BatchNorms (7,588 windows), one-value path
+# (C = 1, 25, 49) and 16-byte path, each with and without the ReLU and the
+# conv bias
+BN_SHAPE = (7580, 11, 11, 1024)
+BN_FLAGSHIP = ((7588, 9, 9, 1), (7588, 7, 7, 25), (7588, 9, 9, 49),
+               (7588, 5, 5, 144), (7588, 7, 7, 256))
 # phase run_modes: the flagship served at stride 3 (and the 12 x 64 crop at
 # stride 2: origin rows 0, 2, 3, the last clamped; its 87 windows and 9
 # padding origins in one chunk of 96), its
@@ -582,7 +608,101 @@ def phase_kernels():
                 record("fused_attention", err, dn, t, p, bound, **extra)
     torch.cuda.synchronize()
     phase_heads_kernels(rows)
+    phase_bn_act(rows)
     return rows
+
+
+def phase_bn_act(rows):
+    """The eval-mode BatchNorm pass against its plain chain, the outputs
+    equal bit for bit each time, and one launch a call: at BN_SHAPE with
+    the conv bias and the ReLU, bf16 (timed, beside the chain, against the
+    bytes bound of one read of x and one write of y) and float32 at a
+    tenth of the windows; then at BN_FLAGSHIP in bf16 (timed with the
+    ReLU, no conv bias, as the flagship calls it) and float32, each with
+    and without the ReLU and the conv bias."""
+    import torch
+
+    from vit_cnn_tpu_torch.ops import _build, bn_act
+    from vit_cnn_tpu_torch.tools import bound as _bound
+    from vit_cnn_tpu_torch.tools import median_ms as _median_ms
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def inputs(shape, dtype):
+        c = shape[-1]
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        mean, cb, bias = (0.2 * torch.randn(c, generator=g, device="cuda")
+                          .to(dtype) for _ in range(3))
+        var = (torch.rand(c, generator=g, device="cuda") + 0.5).to(dtype)
+        weight = (1 + 0.2 * torch.randn(c, generator=g, device="cuda")).to(
+            dtype)
+        return x, (mean, var, weight, bias, 1e-5), cb
+
+    def same(args):
+        before = _build.launches["bn_act"]
+        with torch.no_grad():
+            got = bn_act.bn_act(*args)
+        want = bn_act.bn_act_reference(*args)
+        ints = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+        if _build.launches["bn_act"] != before + 1 or not torch.equal(
+                got.view(ints), want.view(ints)):
+            raise Failed("bn_act {} differs from its plain chain at {} "
+                         "(conv bias {}, relu {}) or did not launch once"
+                         .format(got.dtype, tuple(got.shape),
+                                 args[6] is not None, args[7]))
+        return got
+
+    def timed(args, got, dn):
+        with torch.no_grad():
+            t = _median_ms(lambda: bn_act.bn_act(*args))
+        p = _median_ms(lambda: bn_act.bn_act_reference(*args), reps=3)
+        return t, p, _bound([args[0], got], dn)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        shape = BN_SHAPE if dtype == torch.bfloat16 else (
+            BN_SHAPE[0] // 10,) + BN_SHAPE[1:]
+        x, vectors, cb = inputs(shape, dtype)
+        args = (x, *vectors, cb, True)
+        got = same(args)
+        t = p = bound = None
+        if dtype == torch.bfloat16:
+            t, p, bound = timed(args, got, dn)
+            same(args)
+        print("  {:<44s} {:<8s} equal bit for bit{}".format(
+            "bn_act {}".format(shape), dn, "" if t is None else
+            ": kernel {:.3f} ms, plain {:.3f}, bound {:.3f} ({}), share "
+            "{:.1%}".format(t, p, *bound, bound[0] / t)), flush=True)
+        _record(rows, "bn_act", 0.0, dn, t, p, bound)
+        del x, got, args
+    for shape in BN_FLAGSHIP:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            x, vectors, cb = inputs(shape, dtype)
+            for bias in (None, cb):
+                for relu in (False, True):
+                    got = same((x, *vectors, bias, relu))
+            line = ""
+            if dtype == torch.bfloat16:
+                t, p, bound = timed((x, *vectors, None, True), got, dn)
+                _timed(rows, "bn_act", str(shape), dn, ms=t, plain_ms=p,
+                       bound_ms=bound[0], bound_by=bound[1])
+                line = (": kernel {:.3f} ms, plain {:.3f}, bound {:.3f} "
+                        "({}), share {:.1%}".format(t, p, *bound,
+                                                    bound[0] / t))
+            print("  {:<44s} {:<8s} equal bit for bit, bias and ReLU each "
+                  "on and off{}".format("bn_act {}".format(shape), dn, line),
+                  flush=True)
+            del x, got
+    torch.cuda.synchronize()
+
+
+def _bands(h, w, p, chunk):
+    """Bands of one full-scene request (infer/fullscene.py): origin rows
+    in bands of as many rows as ``chunk`` windows hold."""
+    total, wc = h - p + 1, w - p + 1
+    rows = max(1, min(total, chunk // max(wc, 1)))
+    return -(-total // rows)
 
 
 def _heads_qkv(g, B, n, h, hd, dtype):
@@ -1037,11 +1157,16 @@ def phase_slice(tmp):
         raise Failed("bad map")
     print("[slice] launches {}".format(json.dumps(counts)), flush=True)
     missing = [k for k in ("selective_scan", "dir_conv_silu",
-                           "inv_perm_weighted_sum", "fused_attention")
-               if counts.get(k, 0) <= 0]
+                           "inv_perm_weighted_sum", "fused_attention",
+                           "bn_act") if counts.get(k, 0) <= 0]
     if missing:
         raise Failed("kernels never launched on the main path: {}".format(
             missing))
+    bn = BN_SITES["Multimodality_Mamba"] * _bands(
+        h, w, 9, args.infer_chunk) * served
+    if counts["bn_act"] != bn:
+        raise Failed("bn_act launched {} times, not once a BatchNorm and "
+                     "band ({})".format(counts["bn_act"], bn))
     return counts, resps, state
 
 
@@ -1555,8 +1680,11 @@ def phase_zoo(tmp):
         if probs.shape != (h, w, n_classes) or not finite:
             raise Failed("bad {} map".format(name))
         want = {k: n * n_req for k, n in zip(HEADS, ZOO_LAUNCHES[name])}
-        got = {k: counts[name].get(k, 0) for k in HEADS}
-        others = {k: c for k, c in counts[name].items() if k not in HEADS}
+        want["bn_act"] = BN_SITES[name] * _bands(
+            h, w, p, args.infer_chunk) * n_req
+        got = {k: counts[name].get(k, 0) for k in HEADS + BN_PASS}
+        others = {k: c for k, c in counts[name].items()
+                  if k not in HEADS + BN_PASS}
         print("[zoo] {} launches {} (expected {})".format(
             name, json.dumps(counts[name]), json.dumps(want)), flush=True)
         if got != want or others:
@@ -2015,8 +2143,9 @@ def phase_cnn_zoo(tmp, card):
     the 12 x 64 crop on the card (float32, bf16) against the CPU's float32,
     the float32 train step on the card against the CPU's (32 centers, flip
     off; the bf16 loss beside it), steady bf16 train steps; then HCTnet's
-    run_train and its best file served back. No hand-written kernel lies
-    on this path: every K1-K9 count stays 0. Returns (the serving runs'
+    run_train and its best file served back. None of K1-K9 lies on this
+    path: every K1-K9 count stays 0; serving launches the BatchNorm pass
+    once a BatchNorm and band (BN_SITES). Returns (the serving runs'
     launches per model, the training run's, the figures per model)."""
     import numpy as np
 
@@ -2047,6 +2176,7 @@ def phase_cnn_zoo(tmp, card):
         served = run_serve(args, in_stream=in_s, out_stream=out_s,
                            state_dict=state)
         serve_counts[name] = dict(_build.launches)
+        bn = BN_SITES[name] * _bands(h, w, p, args.infer_chunk) * served
         resps = [json.loads(l) for l in out_s.getvalue().splitlines() if l]
         if served != 2 or not all(r.get("ok") for r in resps):
             raise Failed("{} did not answer 2 requests ok: {}".format(
@@ -2065,9 +2195,11 @@ def phase_cnn_zoo(tmp, card):
                   f["windows_per_s"][1], f["uploads"], probs.shape, finite,
                   json.dumps(serve_counts[name])), flush=True)
         if probs.shape != (h, w, n_classes) or not finite or \
-                f["uploads"][1] != 0 or serve_counts[name]:
-            raise Failed("{}: bad map, a scene uploaded again or a kernel "
-                         "launched".format(name))
+                f["uploads"][1] != 0 or serve_counts[name] != (
+                    {"bn_act": bn} if bn else {}):
+            raise Failed("{}: bad map, a scene uploaded again, or launches "
+                         "other than bn_act's {} (once a BatchNorm and band)"
+                         .format(name, bn))
 
         def crop_map(device, bf16):
             model, _, hp = get_model(name, n_classes=n_classes,
@@ -2105,10 +2237,11 @@ def phase_cnn_zoo(tmp, card):
     result, test_gt, train_counts = _run_train(tmp, work, name, state, card,
                                                "cnn_zoo")
     _zoo_handoff(tmp, work, result, test_gt, card, name, "cnn_zoo")
-    launched = dict(train_counts)
-    for c in serve_counts.values():
+    launched = {}
+    for c in [train_counts, *serve_counts.values()]:
         for k, n in c.items():
-            launched[k] = launched.get(k, 0) + n
+            if k not in BN_PASS:      # serving, and run_train's val and maps
+                launched[k] = launched.get(k, 0) + n
     print("[cnn_zoo] K1-K9 launches over the CNN zoo's serving and {}'s "
           "training: {}".format(name, json.dumps(
               {k: launched.get(k, 0) for k in PATH_KERNELS})), flush=True)
@@ -3006,6 +3139,8 @@ def main():
                                   "vit_cnn_tpu/ops/dirstream.py:308"),
         "fused_attention": ("vit_cnn_tpu_torch/csrc/attention.cu",
                             "vit_cnn_tpu/ops/attention.py:34"),
+        "bn_act": ("vit_cnn_tpu_torch/csrc/bn_act.cu",
+                   "none: XLA fuses the JAX package's BatchNorm chain"),
         "selective_scan_backward": (
             "vit_cnn_tpu_torch/csrc/selective_scan_bwd.cu",
             "vit_cnn_tpu/ops/selective_scan.py:215"),

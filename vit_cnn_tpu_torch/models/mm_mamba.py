@@ -40,7 +40,7 @@ class TokenLearner(nn.Module):
     def forward(self, x):
         combined = torch.cat([x.amax(dim=-1, keepdim=True),
                               x.mean(dim=-1, keepdim=True)], dim=-1)
-        weight = torch.sigmoid(F.relu(self.bn(self.conv(combined))))
+        weight = torch.sigmoid(self.bn(self.conv(combined), relu=True))
         return torch.einsum("bhwc,bhws->bsc", x, weight) / (
             x.shape[1] * x.shape[2])
 
@@ -104,7 +104,7 @@ class FusionBlock(nn.Module):
         if x1.shape[-1] == x2.shape[-1]:
             x1, x2 = channel_exchange(x1, x2)
         x = self.Conv_0(torch.cat([x1, x2], dim=-1))
-        return F.relu(self.BatchNorm_0(x))
+        return self.BatchNorm_0(x, relu=True)
 
 
 class GLFusionBlock(nn.Module):
@@ -122,7 +122,7 @@ class GLFusionBlock(nn.Module):
         globalf = x2 + x1
         localf = self.cross_attention(x2, x1, x1) + x2
         x = self.Conv_0(torch.cat([localf, globalf], dim=-1))
-        return F.relu(self.BatchNorm_0(x))
+        return self.BatchNorm_0(x, relu=True)
 
 
 class GlobalLocalBlock(nn.Module):

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import bn_act
 from ..ops._build import wide
 from ..parallel import mesh
 
@@ -120,12 +121,21 @@ class Conv(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x):
+    @property
+    def pointwise(self) -> bool:
+        """A 1x1 conv at stride 1, unpadded and ungrouped: one matmul over
+        the channels, its bias added by cuBLAS."""
+        return (self.weight[0, 0].numel() == 1 and self.groups == 1
+                and not any(self.padding) and set(self.strides) == {1})
+
+    def forward(self, x, with_bias: bool = True):
+        """``with_bias`` False leaves the bias out (for a caller that adds
+        it itself)."""
         nd = self.weight.dim() - 2
-        if (self.weight[0, 0].numel() == 1 and self.groups == 1
-                and not any(self.padding) and set(self.strides) == {1}):
+        bias = self.bias if with_bias else None
+        if self.pointwise:
             return F.linear(x, self.weight.reshape(self.weight.shape[:2]),
-                            self.bias)
+                            bias)
         conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]
         x, padding = x.movedim(-1, 1), self.padding
         if (nd == 3 and x.device.type == "cpu" and any(padding)
@@ -143,8 +153,7 @@ class Conv(nn.Module):
             # (tests/test_torch_cnn_zoo_train.py holds the second).
             x = F.pad(x, [p for p in reversed(padding) for _ in (0, 1)])
             padding = 0
-        y = conv(x, self.weight, self.bias, self.strides, padding, 1,
-                 self.groups)
+        y = conv(x, self.weight, bias, self.strides, padding, 1, self.groups)
         return y.movedim(1, -1)
 
 
@@ -214,38 +223,44 @@ class ChannelLastBatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
-    def forward(self, x):
+    def forward(self, x, conv_bias=None, relu: bool = False):
+        """BatchNorm of x, before a ReLU where asked. Eval mode is
+        :func:`..ops.bn_act.bn_act`: one kernel on the card where it
+        engages, the plain chain otherwise; it also takes ``conv_bias``
+        (the preceding conv's bias, added in x's dtype), which a train-mode
+        conv keeps."""
+        if not self.training:
+            return bn_act.bn_act(x, self.running_mean, self.running_var,
+                                 self.weight, self.bias, self.eps,
+                                 conv_bias, relu)
+        assert conv_bias is None, "train mode: the conv adds its own bias"
         f = wide(x)
         xf = x.to(f)
-        if self.training:
-            axes = tuple(range(x.dim() - 1))
-            if mesh.current() is None:
-                mean = xf.mean(dim=axes)
-                var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0)
-            else:
-                # the global batch's statistics: the sums of x and x^2 and
-                # the count, summed over the ranks (one differentiable
-                # all-reduce; the fast variance needs no second one)
-                c = x.shape[-1]
-                count = torch.full((1,), float(xf.numel() // max(c, 1)),
-                                   dtype=f, device=x.device)
-                sums = mesh.global_sum(torch.cat([
-                    xf.sum(dim=axes), (xf * xf).sum(dim=axes), count]))
-                mean = sums[:c] / sums[-1]
-                var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0)
-            if self.updates_statistics:
-                with torch.no_grad():
-                    self.running_mean.copy_(
-                        self.decay * self.running_mean.to(f)
-                        + (1 - self.decay) * mean)
-                    self.running_var.copy_(
-                        self.decay * self.running_var.to(f)
-                        + (1 - self.decay) * var)
+        axes = tuple(range(x.dim() - 1))
+        if mesh.current() is None:
+            mean = xf.mean(dim=axes)
+            var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0)
         else:
-            mean, var = self.running_mean.to(f), self.running_var.to(f)
-        mul = torch.rsqrt(var + self.eps) * self.weight.to(f)
-        y = (xf - mean) * mul + self.bias.to(f)
-        return y.to(x.dtype)
+            # the global batch's statistics: the sums of x and x^2 and
+            # the count, summed over the ranks (one differentiable
+            # all-reduce; the fast variance needs no second one)
+            c = x.shape[-1]
+            count = torch.full((1,), float(xf.numel() // max(c, 1)),
+                               dtype=f, device=x.device)
+            sums = mesh.global_sum(torch.cat([
+                xf.sum(dim=axes), (xf * xf).sum(dim=axes), count]))
+            mean = sums[:c] / sums[-1]
+            var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0)
+        if self.updates_statistics:
+            with torch.no_grad():
+                self.running_mean.copy_(
+                    self.decay * self.running_mean.to(f)
+                    + (1 - self.decay) * mean)
+                self.running_var.copy_(
+                    self.decay * self.running_var.to(f)
+                    + (1 - self.decay) * var)
+        return bn_act.normalize(xf, mean, var, self.weight, self.bias,
+                                self.eps, x.dtype, relu)
 
 
 class BatchNorm(nn.Module):
@@ -256,8 +271,8 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.bn = ChannelLastBatchNorm(features)
 
-    def forward(self, x):
-        return self.bn(x)
+    def forward(self, x, conv_bias=None, relu: bool = False):
+        return self.bn(x, conv_bias, relu)
 
 
 def gelu(x):
@@ -303,7 +318,14 @@ class ConvBNReLU(nn.Module):
         self.BatchNorm_0 = BatchNorm(features)
 
     def forward(self, x):
-        return F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        conv, bn = self.Conv_0, self.BatchNorm_0
+        if (not bn.training and conv.bias is not None and not conv.pointwise
+                and bn_act.engages(x, conv.weight, conv.bias)):
+            # cuDNN's route adds the bias after the conv, in x's dtype: the
+            # BatchNorm pass adds it the same way, in the same read (and
+            # the CPU's conv, which may add it inside, keeps it)
+            return bn(conv(x, with_bias=False), conv.bias, relu=True)
+        return bn(conv(x), relu=True)
 
 
 def init_parameters(module: nn.Module, seed: int) -> nn.Module:

@@ -80,6 +80,7 @@ _SIGNATURES = {
     "vct_heads_attention_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "vct_heads_attention_outer": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                   _P],
+    "vct_bn_act": [_I, _P, _P, _L, _I, _P, _P, _P, _P, _P, _F, _I, _P],
 }
 #: workspace sizes (float32 elements) of the backward entry points
 _WORKSPACE_SIGNATURES = {
