@@ -6,7 +6,21 @@ import torch
 
 from gpubench import layout, weights
 
-CELLS = {"mamba-h13": "mamba-h13.serve", "fusatnet-h13": "fusatnet-h13.serve"}
+
+def serving_cells():
+    """Each configuration of ``BENCHMARK.json`` that has a reference, with
+    its first serving cell."""
+    bench, out = layout.benchmark(), {}
+    for w in bench["workloads"]:
+        ref = layout.HERE / "reference" / (w["config"] + ".py")
+        if (w["config"] not in out and ref.exists()
+                and layout.cell(w["name"], bench)["traffic"]["kind"]
+                == "serve"):
+            out[w["config"]] = w["name"]
+    return out
+
+
+CELLS = serving_cells()
 
 
 def program(config):
