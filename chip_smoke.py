@@ -24,7 +24,16 @@ the result lines:
    1,024), with the conv bias and the ReLU, equal to its plain chain bit
    for bit in bf16 (timed beside the chain, with its bound) and float32,
    and at a flagship band's BatchNorms (C = 1, 25, 49, 144, 256; both of
-   its load paths), with and without the conv bias and the ReLU.
+   its load paths), with and without the conv bias and the ReLU. Then
+   train-mode BatchNorm's four passes (``bn_train``) at FusAtNet's largest
+   train-mode tensor (batch 1,024 at 11 x 11 x 1,024) with the ReLU, in
+   bf16 and in float32 at a tenth of the rows: the moments within 2e-6
+   of float64's sums, the forward equal bit for bit to ``normalize`` of
+   the passes' own statistics, y, dx, dw, db and the running statistics
+   no further from float64 autograd of the plain chain than the chain's
+   own, four launches; in bf16 the forward and the forward + backward
+   timed beside the plain chain, against the bytes bound of 16 bytes an
+   element.
 3. slice   — the port's ``--serve`` daemon on the Synthetic scene at
    Houston2013 size (349 x 1905, 144 + 1 bands, 15 classes) under the bf16
    policy, with seeded random weights loaded through convert.py: three
@@ -40,7 +49,9 @@ the result lines:
    steps on one fixed batch of 1024 centers (ms/step, patches/s, peak
    device memory). Every loss finite, the loss falling over the steady
    steps, all seven kernels launched (K5-K7 once per backward per use
-   site), every parameter still float32.
+   site, train-mode BatchNorm's passes four times a BatchNorm and step,
+   three for a BatchNorm of an input, which needs no dx, and never in
+   serving), every parameter still float32.
 6. train-crop — one float32 step on the card and one on the CPU (plain
    versions) from the same weights and 32 centers, flip off: loss, every
    gradient and the updated BatchNorm statistics compared; the card's
@@ -99,7 +110,10 @@ the result lines:
    exactly. No kernel of K1-K9 lies on this path (the JAX CNN models
    reach no Pallas kernel): every K1-K9 count stays 0; serving launches
    the eval-mode BatchNorm pass once a BatchNorm, band and request and
-   nothing else (``run_train``'s validation and maps launch it too).
+   nothing else (``run_train``'s validation and maps launch it too); a
+   train step launches train-mode BatchNorm's passes four times a
+   BatchNorm (``BN_SITES``; none of these models normalises an input)
+   and nothing else.
 
 11. run_modes — run after the CNN zoo: the port's remaining run modes.
    The flagship through ``--serve`` with ``{"stride": 3}`` requests (bf16;
@@ -275,6 +289,21 @@ BN_SITES = {"Multimodality_Mamba": 16, "MHST": 9, "SpectralFormer": 0,
 # (C = 1, 25, 49) and 16-byte path, each with and without the ReLU and the
 # conv bias
 BN_SHAPE = (7580, 11, 11, 1024)
+# train-mode BatchNorm's passes: every train step of a model with a
+# BatchNorm, BN_TRAIN_PER_SITE launches a BatchNorm a step (moments and
+# apply forward, sums and dx backward), none in serving; phase 2 times them
+# at FusAtNet's largest train-mode tensor, batch 1,024 at 11 x 11 x 1,024
+BN_TRAIN = ("bn_train",)
+BN_TRAIN_PER_SITE = 4
+# BatchNorms of a model's own inputs (the flagship's HSI and LiDAR): their
+# input needs no gradient, so the dx pass is skipped, 3 launches a step
+BN_INPUTS = {"Multimodality_Mamba": 2}
+BN_TRAIN_SHAPE = (1024, 11, 11, 1024)
+# the passes' gap from float64 autograd of the chain (relative, in norm)
+# may exceed the chain's own gap by this factor, or reach this floor
+# (eight float32 ulps), as tests/test_torch_bn_train_cuda.py holds them;
+# their moments lie within BN_TRAIN_MOMENTS of float64's sums
+BN_TRAIN_ROOM, BN_TRAIN_FLOOR, BN_TRAIN_MOMENTS = 1.02, 2.0 ** -21, 2e-6
 BN_FLAGSHIP = ((7588, 9, 9, 1), (7588, 7, 7, 25), (7588, 9, 9, 49),
                (7588, 5, 5, 144), (7588, 7, 7, 256))
 # phase run_modes: the flagship served at stride 3 (and the 12 x 64 crop at
@@ -609,6 +638,7 @@ def phase_kernels():
     torch.cuda.synchronize()
     phase_heads_kernels(rows)
     phase_bn_act(rows)
+    phase_bn_train(rows)
     return rows
 
 
@@ -694,6 +724,173 @@ def phase_bn_act(rows):
                   "on and off{}".format("bn_act {}".format(shape), dn, line),
                   flush=True)
             del x, got
+    torch.cuda.synchronize()
+
+
+def phase_bn_train(rows):
+    """Train-mode BatchNorm's four passes at BN_TRAIN_SHAPE with the ReLU,
+    bf16 (timed) and float32 (a tenth of the rows), each held to the plain
+    chain on the same inputs: the moments within BN_TRAIN_MOMENTS of
+    float64's sums (relative to the sums of |x| and of x^2); the forward
+    equal bit for bit to ``normalize`` fed the passes' own statistics;
+    y, dx, dw, db and the updated running statistics no further from
+    float64 autograd of the chain than the chain's own autograd in the
+    same dtype (relative gaps in norm, BN_TRAIN_ROOM and BN_TRAIN_FLOOR;
+    the gradients against float64 fed each side's own ReLU mask, whose
+    signs unlike float64's are counted); two launches forward and two
+    backward. The row's error is the worst
+    relative gap of the passes from float64. Then the forward and the
+    forward + backward timed beside the plain chain's, against the bytes
+    bound of 16 bytes a bf16 element (x read twice and y written forward;
+    dy and x read twice and dx written backward)."""
+    import torch
+
+    from vit_cnn_tpu_torch.nn.layers import ChannelLastBatchNorm
+    from vit_cnn_tpu_torch.ops import _build, bn_act, bn_train
+    from vit_cnn_tpu_torch.tools import bound as _bound
+    from vit_cnn_tpu_torch.tools import median_ms as _median_ms
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    eps = ChannelLastBatchNorm.eps
+    names = ("y", "dx", "dw", "db", "running mean", "running var")
+
+    def gap(got, want):
+        return float((got.double() - want).norm() / want.norm())
+
+    def layer(module, x, dy, weight, bias, kernels, backward=True,
+              relu=True):
+        """y and x (its gradient taken where ``backward``) of ``module``'s
+        train-mode forward, with the ReLU where ``relu``, by the passes or
+        (``kernels`` False) the plain chain."""
+        real = bn_train.engages
+        if not kernels:
+            bn_train.engages = lambda t: False
+        try:
+            xs = x.detach().requires_grad_(backward)
+            y = torch.func.functional_call(
+                module, {"weight": weight, "bias": bias}, (xs,),
+                {"relu": relu})
+            if backward:
+                y.backward(dy)
+        finally:
+            bn_train.engages = real
+        return y, xs
+
+    def results(module, x, dy, weight, bias, kernels, relu=True):
+        """(y, dx, dw, db, running mean, running var) of one step on fresh
+        leaves, the running statistics starting at 0 and 1."""
+        with torch.no_grad():
+            module.running_mean.zero_()
+            module.running_var.fill_(1.0)
+        w, b = (t.detach().requires_grad_() for t in (weight, bias))
+        y, xs = layer(module, x, dy, w, b, kernels, relu=relu)
+        return (y.detach(), xs.grad, w.grad, b.grad,
+                module.running_mean.clone(), module.running_var.clone())
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        shape = BN_TRAIN_SHAPE if dtype == torch.bfloat16 else (
+            BN_TRAIN_SHAPE[0] // 10,) + BN_TRAIN_SHAPE[1:]
+        c = shape[-1]
+        x = (torch.randn(shape, generator=g, device="cuda")
+             + torch.randn(c, generator=g, device="cuda")).to(dtype)
+        dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        weight, bias = ((s + 0.2 * torch.randn(c, generator=g, device="cuda"))
+                        .to(dtype).requires_grad_() for s in (1.0, 0.0))
+        module = ChannelLastBatchNorm(c).cuda().train()
+
+        sums = bn_train.moments(x)
+        x64 = x.double().reshape(-1, c)
+        s1, s2 = x64.sum(0), (x64 * x64).sum(0)
+        got = sums.double()
+        moments_gap = max(
+            float(((got[:c] - s1).abs() / x64.abs().sum(0)).max()),
+            float(((got[c:2 * c] - s2).abs() / s2).max()))
+        del x64, s1, s2
+        if not moments_gap <= BN_TRAIN_MOMENTS or got[-1] != x.numel() // c:
+            raise Failed("bn_train {} at {}: the moments lie {:.3g} from "
+                         "float64's sums (limit {:g}) or miscount the rows"
+                         .format(dn, shape, moments_gap, BN_TRAIN_MOMENTS))
+        mean, var, _ = bn_train.statistics(sums)
+        want = bn_act.normalize(x.float(), mean, var, weight.detach(),
+                                bias.detach(), eps, dtype, True)
+        before = _build.launches["bn_train"]
+        passes = results(module, x, dy, weight, bias, True)
+        torch.cuda.synchronize()
+        ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        if (_build.launches["bn_train"] != before + 4
+                or not torch.equal(passes[0].view(ints), want.view(ints))):
+            raise Failed("bn_train {} at {}: the forward differs from "
+                         "normalize of its own statistics, or it did not "
+                         "launch 4 times".format(dn, shape))
+        del want
+        chain = results(module, x, dy, weight, bias, False)
+        if _build.launches["bn_train"] != before + 4:
+            raise Failed("bn_train {} at {}: the plain chain launched the "
+                         "passes".format(dn, shape))
+        wide = [t.double() for t in (x, dy, weight, bias)]
+        ref = results(module.double(), *wide, False)
+        # The ReLU's gradient steps at 0, and a float32 forward and
+        # float64's give a different sign on about one element in 10^7;
+        # one such element moves dx by ~1/sqrt(elements) of its norm, on
+        # either side, by chance. So each side's gradients are held to
+        # float64 autograd of the chain before the ReLU, fed dy masked by
+        # that side's own output (the mask its backward applies).
+        flips = [int(((side[0] > 0) != (ref[0] > 0)).sum())
+                 for side in (passes, chain)]
+        own = [ref[:1] + results(module, wide[0], wide[1] * (side[0] > 0),
+                                 *wide[2:], False, relu=False)[1:4] + ref[4:]
+               for side in (passes, chain)]
+        module.float()
+        worst, gaps = 0.0, []
+        for name, a, p, wa, wp in zip(names, passes, chain, *own):
+            ga, gp = gap(a, wa), gap(p, wp)
+            worst = max(worst, ga)
+            gaps.append("{} {:.3g} ({:.3g})".format(name, ga, gp))
+            if a.dtype != p.dtype or not ga <= max(BN_TRAIN_ROOM * gp,
+                                                  BN_TRAIN_FLOOR):
+                raise Failed("bn_train {} at {}: {} lies {:.4g} from float64 "
+                             "autograd of the chain, the chain's own {} "
+                             "{:.4g} (limit: {} x it, at least {:.3g})"
+                             .format(dn, shape, name, ga, p.dtype, gp,
+                                     BN_TRAIN_ROOM, BN_TRAIN_FLOOR))
+        del ref, own, chain
+        t = p = t_fwd = p_fwd = bound = None
+        line = ""
+        if dtype == torch.bfloat16:
+            stats = [torch.zeros(c, device="cuda"),
+                     torch.ones(c, device="cuda")]
+
+            def pair(backward=True):
+                xs = x.detach().requires_grad_(backward)
+                y = bn_train.bn_train(xs, weight, bias, *stats, eps, 0.9,
+                                      True)
+                if backward:
+                    y.backward(dy)
+                return y
+
+            def plain(backward=True):
+                return layer(module, x, dy, weight, bias, False, backward)[0]
+
+            with torch.no_grad():
+                t_fwd = _median_ms(lambda: pair(False))
+                p_fwd = _median_ms(lambda: plain(False), reps=3)
+            t = _median_ms(pair)
+            p = _median_ms(plain, reps=3)
+            bound = _bound([x, x, passes[0], dy, x, dy, x, passes[1]], dn)
+            line = ("; forward + backward {:.3f} ms, plain {:.3f}, bound "
+                    "{:.3f} ({}), share {:.1%}; forward {:.3f} ms, plain "
+                    "{:.3f}".format(t, p, *bound, bound[0] / t, t_fwd,
+                                    p_fwd))
+        print("  {:<44s} {:<8s} moments {:.3g} from float64, forward equal "
+              "bit for bit; ReLU signs unlike float64's {} ({}); from "
+              "float64 (chain's): {}{}".format(
+                  "bn_train {}".format(shape), dn, moments_gap, *flips,
+                  ", ".join(gaps), line), flush=True)
+        _record(rows, "bn_train", worst, dn, t, p, bound,
+                **({} if t is None else {"forward_ms": t_fwd,
+                                         "plain_forward_ms": p_fwd}))
+        del x, dy, passes
     torch.cuda.synchronize()
 
 
@@ -1167,6 +1364,7 @@ def phase_slice(tmp):
     if counts["bn_act"] != bn:
         raise Failed("bn_act launched {} times, not once a BatchNorm and "
                      "band ({})".format(counts["bn_act"], bn))
+    _check_bn_train(counts, "Multimodality_Mamba", 0, "slice")
     return counts, resps, state
 
 
@@ -1209,11 +1407,34 @@ def phase_crop(tmp, state):
         raise Failed("crop map disagrees with the CPU plain path")
 
 
+def _bn_train_launches(name, steps):
+    """Train-mode BatchNorm's launches in ``steps`` train steps of
+    ``name``: BN_TRAIN_PER_SITE a BatchNorm a step, one fewer a BatchNorm
+    of an input (BN_INPUTS)."""
+    return (BN_SITES[name] * BN_TRAIN_PER_SITE
+            - BN_INPUTS.get(name, 0)) * steps
+
+
+def _check_bn_train(counts, name, steps, where):
+    """The train-mode BatchNorm passes launched exactly as ``steps`` train
+    steps of ``name`` call them."""
+    want = _bn_train_launches(name, steps)
+    if counts.get("bn_train", 0) != want:
+        raise Failed("{}: bn_train launched {} times in {} steps, not {} "
+                     "({} a BatchNorm a step, {} of its {} input "
+                     "BatchNorms)".format(
+                         where, counts.get("bn_train", 0), steps, want,
+                         BN_TRAIN_PER_SITE, BN_TRAIN_PER_SITE - 1,
+                         BN_INPUTS.get(name, 0)))
+
+
 def _check_counts(counts, steps, where):
     """Every kernel launched; the adjoints exactly once per backward per
-    use site."""
+    use site, train-mode BatchNorm's passes BN_TRAIN_PER_SITE times a
+    BatchNorm a step."""
     print("[{}] launches {}".format(where, json.dumps(counts)), flush=True)
-    missing = [k for k in FORWARD + ADJOINTS if counts.get(k, 0) <= 0]
+    missing = [k for k in FORWARD + ADJOINTS + BN_TRAIN
+               if counts.get(k, 0) <= 0]
     if missing:
         raise Failed("kernels never launched in {}: {}".format(where,
                                                               missing))
@@ -1223,6 +1444,7 @@ def _check_counts(counts, steps, where):
         if off:
             raise Failed("{}: {} steps but adjoint launches {}".format(
                 where, steps, off))
+        _check_bn_train(counts, "Multimodality_Mamba", steps, where)
 
 
 def phase_train(tmp, state):
@@ -1610,6 +1832,8 @@ def phase_runloop(tmp, state, card):
     missing = [k for k in FORWARD if serve_counts.get(k, 0) <= 0]
     if missing:
         raise Failed("restored serving never launched {}".format(missing))
+    _check_bn_train(serve_counts, "Multimodality_Mamba", 0,
+                    "restored serving")
 
     # the card's default algorithms are not bitwise repeatable (two
     # unbroken 3-epoch runs part by ~1e-2 of a tensor's largest entry), so
@@ -2054,6 +2278,12 @@ def _run_train(tmp, work, name, state, card, tag):
     return result, splits[-1][1], counts
 
 
+def _run_steps(result):
+    """The train steps of a run_train result: its epochs of batches of
+    TRAIN_BATCH, the last one padded."""
+    return -(-result["train_samples"] // TRAIN_BATCH) * result["epochs"]
+
+
 def _steady(scene, state, name, card, tag, want):
     """ZOO_STEADY_STEPS bf16 steps of ``name`` on one batch of TRAIN_BATCH
     centers (flip on) after one untimed step: ms/step, patches/s and peak
@@ -2120,7 +2350,11 @@ def phase_zoo_train(tmp, rows, card):
                                                    card, "zoo_train")
         if counts[name].get("fused_attention_heads", 0) <= 0:
             raise Failed("{}: run_train launched no K8".format(name))
+        _check_bn_train(counts[name], name, _run_steps(result),
+                        "{} run_train".format(name))
         want = {"fused_attention_heads": ZOO_TRAIN_K8[name] * ZOO_STEADY_STEPS}
+        if BN_SITES[name]:
+            want["bn_train"] = _bn_train_launches(name, ZOO_STEADY_STEPS)
         steady[name], got = _steady(scene, state, name, card, "zoo_train",
                                     want)
         steady[name]["k8_per_step"] = got.get("fused_attention_heads", 0) \
@@ -2145,8 +2379,10 @@ def phase_cnn_zoo(tmp, card):
     off; the bf16 loss beside it), steady bf16 train steps; then HCTnet's
     run_train and its best file served back. None of K1-K9 lies on this
     path: every K1-K9 count stays 0; serving launches the BatchNorm pass
-    once a BatchNorm and band (BN_SITES). Returns (the serving runs'
-    launches per model, the training run's, the figures per model)."""
+    once a BatchNorm and band (BN_SITES), a train step train-mode
+    BatchNorm's passes BN_TRAIN_PER_SITE times a BatchNorm. Returns (the
+    serving runs' launches per model, the training run's, the figures per
+    model)."""
     import numpy as np
 
     from vit_cnn_tpu_torch.cli import build_parser, run_serve
@@ -2224,9 +2460,13 @@ def phase_cnn_zoo(tmp, card):
                   cpu[inner].shape[0] * cpu[inner].shape[1]), flush=True)
         if d32 > CROP_TOL * scale or agree16 < 0.99:
             failed.append(name)
-        if _zoo_train_crop(tmp, name, state, tag="cnn_zoo"):
-            raise Failed("{}'s train step launched a kernel".format(name))
-        f.update(_steady(scene, state, name, card, "cnn_zoo", {})[0])
+        bn = ({"bn_train": _bn_train_launches(name, 1)} if BN_SITES[name]
+              else {})
+        if _zoo_train_crop(tmp, name, state, tag="cnn_zoo") != bn:
+            raise Failed("{}'s train step launched a kernel other than "
+                         "bn_train's {}".format(name, bn))
+        f.update(_steady(scene, state, name, card, "cnn_zoo", {
+            k: n * ZOO_STEADY_STEPS for k, n in bn.items()})[0])
     if failed:
         raise Failed("CNN crop maps disagree with the CPU plain path: {}"
                      .format(failed))
@@ -2236,11 +2476,14 @@ def phase_cnn_zoo(tmp, card):
     state = _seeded_state(name, n_bands, n_classes)
     result, test_gt, train_counts = _run_train(tmp, work, name, state, card,
                                                "cnn_zoo")
+    _check_bn_train(train_counts, name, _run_steps(result),
+                    "{} run_train".format(name))
     _zoo_handoff(tmp, work, result, test_gt, card, name, "cnn_zoo")
     launched = {}
     for c in [train_counts, *serve_counts.values()]:
         for k, n in c.items():
-            if k not in BN_PASS:      # serving, and run_train's val and maps
+            # serving, run_train's val and maps, and its train steps
+            if k not in BN_PASS + BN_TRAIN:
                 launched[k] = launched.get(k, 0) + n
     print("[cnn_zoo] K1-K9 launches over the CNN zoo's serving and {}'s "
           "training: {}".format(name, json.dumps(
@@ -2298,6 +2541,7 @@ def _stride_serve(tmp, state, card, scene):
             not (np.abs(probs[centers]).sum(-1) > 0).all() or missing:
         raise Failed("stride serving: bad map or kernels never launched "
                      "{}".format(missing))
+    _check_bn_train(counts, "Multimodality_Mamba", 0, "stride serving")
     return counts, figures
 
 
@@ -3040,7 +3284,7 @@ def phase_mesh(tmp, state, card):
     if bad:
         raise Failed("mesh: {}".format("; ".join(bad)))
     return {k: sum(c.get(k, 0) for c in launches)
-            for k in PATH_KERNELS}, figures
+            for k in PATH_KERNELS + BN_TRAIN}, figures
 
 
 def phase_bench_models(card):
@@ -3141,6 +3385,8 @@ def main():
                             "vit_cnn_tpu/ops/attention.py:34"),
         "bn_act": ("vit_cnn_tpu_torch/csrc/bn_act.cu",
                    "none: XLA fuses the JAX package's BatchNorm chain"),
+        "bn_train": ("vit_cnn_tpu_torch/csrc/bn_train.cu",
+                     "none: XLA fuses the JAX package's BatchNorm chain"),
         "selective_scan_backward": (
             "vit_cnn_tpu_torch/csrc/selective_scan_bwd.cu",
             "vit_cnn_tpu/ops/selective_scan.py:215"),
@@ -3191,7 +3437,7 @@ def main():
              "path_types": path_counts, "sweep": sweep_counts,
              "mesh": mesh_counts, "bench_models": bench_counts}
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
-                  launches=paths["train" if name in ADJOINTS else
+                  launches=paths["train" if name in ADJOINTS + BN_TRAIN else
                                  "serve_zoo" if name in HEADS else
                                  "sweep" if name in VARIANTS else
                                  "serve"].get(name, 0),

@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import bn_act
+from ..ops import bn_act, bn_train
 from ..ops._build import wide
 from ..parallel import mesh
 
@@ -228,12 +228,19 @@ class ChannelLastBatchNorm(nn.Module):
         :func:`..ops.bn_act.bn_act`: one kernel on the card where it
         engages, the plain chain otherwise; it also takes ``conv_bias``
         (the preceding conv's bias, added in x's dtype), which a train-mode
-        conv keeps."""
+        conv keeps. Train mode is :func:`..ops.bn_train.bn_train` (four
+        kernels a forward and backward) on the card in float32 and
+        bfloat16, and the plain chain below on the CPU and in float64."""
         if not self.training:
             return bn_act.bn_act(x, self.running_mean, self.running_var,
                                  self.weight, self.bias, self.eps,
                                  conv_bias, relu)
         assert conv_bias is None, "train mode: the conv adds its own bias"
+        if bn_train.engages(x):
+            return bn_train.bn_train(x, self.weight, self.bias,
+                                     self.running_mean, self.running_var,
+                                     self.eps, self.decay, relu,
+                                     self.updates_statistics)
         f = wide(x)
         xf = x.to(f)
         axes = tuple(range(x.dim() - 1))

@@ -17,8 +17,9 @@ kernel launch in a process builds it.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches
 (:func:`check` raises on a non-zero code), and takes pointers and the
-CUDA stream as ``void*``. The backward kernels sum across blocks through
-a float32 workspace that the wrapper allocates (:func:`workspace`) at the
+CUDA stream as ``void*``. The backward kernels and train-mode
+BatchNorm's reduce passes sum across blocks through a workspace (a
+float32 tensor) that the wrapper allocates (:func:`workspace`) at the
 size their ``*_workspace`` entry point reports.
 """
 
@@ -81,12 +82,21 @@ _SIGNATURES = {
     "vct_heads_attention_outer": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                   _P],
     "vct_bn_act": [_I, _P, _P, _L, _I, _P, _P, _P, _P, _P, _F, _I, _P],
+    "vct_bn_train_moments": [_I, _P, _L, _I, _P, _P, _P],
+    "vct_bn_train_apply": [_I, _P, _P, _L, _I, _P, _P, _P, _F, _I, _P, _P,
+                           _F, _F, _P],
+    "vct_bn_train_backward_sums": [_I, _P, _P, _L, _I, _P, _P, _P, _F, _I,
+                                   _P, _P, _P, _P, _P],
+    "vct_bn_train_backward_apply": [_I, _P, _P, _P, _L, _I, _P, _P, _P, _P,
+                                    _F, _I, _P],
 }
-#: workspace sizes (float32 elements) of the backward entry points
+#: workspace sizes (float32 elements) of the entry points that sum across
+#: blocks
 _WORKSPACE_SIGNATURES = {
     "vct_selective_scan_bwd_workspace": [_I] * 5,
     "vct_dir_conv_silu_bwd_workspace": [_I] * 3,
     "vct_inv_perm_weighted_sum_bwd_workspace": [_I] * 4,
+    "vct_bn_train_workspace": [_L, _I],
 }
 
 _lock = threading.Lock()
